@@ -1,0 +1,36 @@
+"""TensorFrame on PyTorch — MojoFrame's tensor-backed dataframe engine.
+
+Frames hold exact int64 keys and float64 measures on their device
+(``CONFIG.device``, the CUDA card by default; ``device="cpu"`` asks for
+the CPU).
+"""
+from .config import CONFIG, EngineConfig, resolve_device
+from .frame import TensorFrame, concat_rows
+from .expr import (
+    DateLit,
+    Expr,
+    col,
+    lit,
+    d,
+    if_else,
+    parse_date,
+    udf,
+)
+from .join import join
+
+__all__ = [
+    "CONFIG",
+    "EngineConfig",
+    "resolve_device",
+    "TensorFrame",
+    "concat_rows",
+    "DateLit",
+    "Expr",
+    "col",
+    "lit",
+    "d",
+    "if_else",
+    "parse_date",
+    "udf",
+    "join",
+]

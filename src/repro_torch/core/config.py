@@ -1,0 +1,51 @@
+"""Engine-wide configuration of the port (the knobs the dataframe path
+reads), and the device policy of its entry points."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    # Columns with (n_distinct / n_rows) <= card_threshold are
+    # dictionary-encoded into the int tensor; above it they are offloaded
+    # (paper §III-c/d uses 50%).
+    card_threshold: float = 0.5
+    # Measure tensor dtype: float64 keeps the reference's exact analytics
+    # on the card too.
+    float_dtype: str = "float64"
+    # When True, string predicates on offloaded columns run on the packed
+    # (n, maxlen) uint8 tensor of the physical rows (the substring kernel
+    # on the card) instead of the dictionary-LUT path.
+    use_device_strings: bool = False
+    # Maximum packed string width for the packed string paths.
+    max_packed_len: int = 128
+    # Late materialization: row-subsetting ops return RowView frames that
+    # compose gather indices; payloads materialize at pipeline exits.
+    # False gives the eager copy-per-op engine.
+    late_materialization: bool = True
+    # Device of new frames when the caller names none.
+    device: str = "cuda"
+
+
+CONFIG = EngineConfig()
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device an entry point runs on: ``device`` or ``CONFIG.device``.
+
+    Raises when that is a CUDA device and no card is visible: the engine
+    never carries on silently on the CPU.
+    """
+    dev = torch.device(CONFIG.device if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
