@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # TPC-H SF 1, all 22 queries
-    python3 chip_smoke.py --sf 0.05  # a quicker main path
+    python3 chip_smoke.py            # TPC-H SF 1, all 22 queries, then the LM path
+    python3 chip_smoke.py --sf 0.05  # a quicker TPC-H main path
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. each kernel against its plain PyTorch version on the card, at edge
-   shapes and at the shapes the main path gives it (TPC-H q1 and q18
-   group sums, the q13 ``o_comment`` dictionary), with times;
-3. the main path: TPC-H generated from ``--seed`` at ``--sf``, frames
-   built on the card, the 22 queries run twice through the dataframe
-   API; every kernel's launch count must rise during that run; then a
-   third pass under ``torch.profiler`` for the device's busy share, and
-   the three slowest warm queries once more under ``cProfile``;
+   shapes (2a) and at the shapes the main paths give it (2b: TPC-H q1 and
+   q18 group sums, the q13 ``o_comment`` dictionary, Qwen3-14B's prefill
+   attention, RWKV6-7B's decode recurrence), with times and bounds;
+3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
+   frames built on the card, the 22 queries run twice through the
+   dataframe API; the segment-sum and substring kernels' launch counts
+   must rise during that run; then a third pass under ``torch.profiler``
+   for the device's busy share, and the three slowest warm queries once
+   more under ``cProfile``;
 4. the card against the CPU plain path on all 22 queries at SF 0.01:
    ints, codes and row order exactly, floats within rtol 1e-8;
+6. the LM path at full width with random weights from ``--seed``:
+   Qwen3-14B prefilled at B=1, S=4096 (exactly one attention-kernel
+   launch per layer) and served (8 requests over 4 slots), then
+   RWKV6-7B served (16 requests over 4 slots, exactly one WKV launch per
+   layer and decode step); prefill and decode-step times, tokens per
+   second, peak device memory, and the device's busy share of a
+   profiled prefill and decode pass;
+7. the card against the CPU on the LM path: reduced float32 Qwen3-14B
+   and RWKV6-7B with the same weights on both devices, prefill logits
+   within 1e-4 and served tokens equal;
 5. one JSON line describing every kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -36,12 +48,15 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet) for the bound each kernel
-# is held to: device-memory bandwidth, and the non-tensor-core float32
-# rate (the data sheet's table has no float64 or int64 entry; both
-# kernels are bounded by bytes by orders of magnitude either way).
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for the
+# bound each kernel is held to: device-memory bandwidth; the
+# non-tensor-core float32 rate, for the segment sum, the substring search
+# and the WKV recurrence (the table has no float64 or int64 entry; those
+# kernels are bounded by bytes by orders of magnitude either way); and
+# the bf16 tensor-core rate, for attention on bf16 inputs.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 # Tolerances of kernel vs plain version on one call.  Float atomics add
 # in an order that changes from run to run: float64 agrees to rtol 1e-12,
@@ -54,6 +69,19 @@ CHECK_SF = 0.01
 REPS = 20
 # Wall-time budget of the profiled pass (phase 3b).
 PROFILE_BUDGET_S = 60.0
+# K4 and K5 against their plain versions: (rtol = atol) per input dtype,
+# those of tests/test_kernels.py (f32 sums in another order; bf16 output
+# rounding), and timed repetitions at their main-path shapes.
+WKV6_TOL = {"float32": 1e-4, "bfloat16": 4e-2}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LM_REPS = 10
+# The LM path (phase 6): prompt length of the prefill, and the serving
+# runs' requests, slots, cache length and new tokens per request.
+PREFILL_LEN = 4096
+SERVE = {"qwen3-14b": 8, "rwkv6-7b": 16}
+SLOTS, MAX_LEN, MAX_NEW = 4, 256, 8
+# Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
+LM_CHECK_TOL = 1e-4
 
 
 def log(*parts) -> None:
@@ -83,9 +111,28 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, nops: float):
+def device_ms(torch, fn, kernel_key: str, reps: int) -> float:
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel_key``, from ``torch.profiler`` over ``reps`` calls of ``fn``:
+    the kernel alone, where ``cuda_ms`` also sees the host time of a
+    wrapper that cannot keep the card busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [(ms, n) for key, (ms, n) in device_busy(prof)[1].items() if kernel_key in key]
+    if not hits:
+        raise AssertionError(f"the profiler saw no {kernel_key} kernel")
+    return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+
+
+def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -188,6 +235,7 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
     for label, v, g, m in cases:
         err = check_segment_sum(torch, seg, v, g, m, label)
         k_ms = cuda_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), REPS)
+        d_ms = device_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), "segment_sum_", REPS)
         p_ms = cuda_ms(torch, lambda: seg.segment_sum_plain(v, g, m), REPS)
         l_ms = cuda_ms(
             torch, lambda: torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, g, v), REPS
@@ -195,7 +243,8 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
         nbytes = v.numel() * (v.element_size() + 8) + m * v.element_size()
         b_ms, b_by = bound_ms(nbytes, v.numel())
         row = dict(label=label, n=v.numel(), m=m, dtype=str(v.dtype), max_abs_err=err,
-                   ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+                   ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+                   bound_by=b_by)
         log("   ", json.dumps(row))
         seg_rows.append(row)
     out["segment_sum"] = seg_rows
@@ -211,6 +260,8 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
     find_rows = []
     for label, p, st, res in [("q13 o_comment dictionary 'special'", pat_a, None, fa)]:
         k_ms = cuda_ms(torch, lambda: sf.substr_find_cuda(packed, lens, p, st), REPS)
+        d_ms = device_ms(torch, lambda: sf.substr_find_cuda(packed, lens, p, st),
+                         "substr_find_rows", REPS)
         p_ms = cuda_ms(torch, lambda: sf.substr_find_plain(packed, lens, p, st), REPS)
         # bytes this run's data needs: each row up to the end of its
         # first match (or its length), plus lens read and results written
@@ -220,11 +271,358 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
         nbytes = scanned + packed.shape[0] * (4 + 4)
         b_ms, b_by = bound_ms(nbytes, scanned)
         row = dict(label=label, n=packed.shape[0], L=L, max_abs_err=0.0, ms=k_ms,
-                   plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                   device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
         log("   ", json.dumps(row))
         find_rows.append(row)
     out["substr_find"] = find_rows
     return out
+
+
+# ----------------------------------------------------------------------
+# phase 2, K4 and K5: edge shapes, and the LM path's shapes
+# ----------------------------------------------------------------------
+def allclose_err(torch, got, want, tol: float):
+    """(max abs error, whether |got - want| <= tol + tol * |want|)."""
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    return max_abs_err(torch, g, w), bool(((g - w).abs() <= tol + tol * w.abs()).all())
+
+
+def check_attention(torch, q, k, v, causal: bool, label: str) -> float:
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+
+    got = flash_attention_cuda(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[str(q.dtype).replace("torch.", "")]
+    err, ok = allclose_err(torch, got, want, tol)
+    log(f"  flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+        f"causal={causal} max_abs_err={err!r} (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash_attention kernel disagrees with its plain version at {label}")
+    return err
+
+
+def check_wkv6(torch, args, label: str) -> float:
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    y, s = wkv6_cuda(*args)
+    y_want, s_want = wkv6_plain(*args)
+    torch.cuda.synchronize()
+    tol = WKV6_TOL[str(args[0].dtype).replace("torch.", "")]
+    err_y, ok_y = allclose_err(torch, y, y_want, tol)
+    err_s, ok_s = allclose_err(torch, s, s_want, tol)
+    log(f"  wkv6 {label}: r {tuple(args[0].shape)} {args[0].dtype} "
+        f"state={'yes' if args[5] is not None else 'no'} max_abs_err y={err_y!r} "
+        f"state={err_s!r} (tol {tol}) {'ok' if ok_y and ok_s else 'MISMATCH'}")
+    if not (ok_y and ok_s):
+        raise AssertionError(f"wkv6 kernel disagrees with its plain version at {label}")
+    return max(err_y, err_s)
+
+
+def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool):
+    def normal(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale, device=dev)
+
+    r, k, v = (normal(B, H, T, D, scale=0.5).to(dtype) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.7, 0.999, (B, H, T, D)), device=dev).to(dtype)
+    u = normal(H, D, scale=0.1).to(dtype)
+    s0 = normal(B, H, D, D).float() if with_state else None
+    return [r, k, v, w, u, s0]
+
+
+def lm_edge_phase(torch, dev) -> None:
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    log("phase 2a: edge shapes of flash_attention (K4) and wkv6 (K5)")
+    rng = np.random.default_rng(11)
+    for dtype in (torch.float32, torch.bfloat16):
+        # (B, Hq, Hkv, Sq, Sk, D): ragged lengths, Sq < Sk, D 16..128, groups 1, 2, 5
+        for B, Hq, Hkv, Sq, Sk, D in [(2, 2, 2, 100, 100, 16), (1, 4, 2, 37, 200, 64),
+                                      (1, 10, 2, 130, 130, 96), (1, 5, 1, 1, 77, 128),
+                                      (2, 40, 8, 64, 64, 128), (1, 4, 4, 257, 300, 64)]:
+            q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(dtype)
+            k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
+            v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
+            for causal in (True, False):
+                check_attention(torch, q.transpose(1, 2), k, v, causal, "edge")
+        for B, H, T, D in [(1, 2, 1, 16), (3, 5, 7, 64), (2, 4, 64, 64), (1, 2, 7, 128)]:
+            for with_state in (False, True):
+                args = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state)
+                check_wkv6(torch, args, "edge")
+        # state chaining: two calls through the carried state equal one
+        r, k, v, w, u, _ = wkv6_inputs(torch, rng, dev, dtype, 2, 4, 64, 64, False)
+        y, s = wkv6_cuda(r, k, v, w, u)
+        h = 23
+        part = lambda t, sl: t[:, :, sl].contiguous()
+        y1, s1 = wkv6_cuda(*(part(t, slice(0, h)) for t in (r, k, v, w)), u)
+        y2, s2 = wkv6_cuda(*(part(t, slice(h, None)) for t in (r, k, v, w)), u, s1)
+        tol = WKV6_TOL[str(dtype).replace("torch.", "")]
+        err_y, ok_y = allclose_err(torch, torch.cat([y1, y2], 2), y, tol)
+        err_s, ok_s = allclose_err(torch, s2, s, tol)
+        log(f"  wkv6 chained 23 + 41 steps vs 64 in one call, {dtype}: max_abs_err "
+            f"y={err_y!r} state={err_s!r} {'ok' if ok_y and ok_s else 'MISMATCH'}")
+        if not (ok_y and ok_s):
+            raise AssertionError("wkv6 kernel: two chained calls differ from one")
+
+
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps: the work K4 must do."""
+    if not causal:
+        return Sq * Sk
+    return sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq))
+
+
+def lm_main_shape_phase(torch, dev) -> dict:
+    """K4 at Qwen3-14B's prefill shape and K5 at RWKV6-7B's decode shape,
+    bf16 as the models run them, with times and bounds."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    log("phase 2b: LM main-path shapes")
+    rng = np.random.default_rng(12)
+    out = {}
+    qc = get("qwen3-14b")
+    B, Hq, Hkv, S, D = 1, qc.n_heads, qc.n_kv_heads, PREFILL_LEN, qc.hd
+    q = torch.as_tensor(rng.normal(size=(B, S, Hq, D)), device=dev).to(torch.bfloat16)
+    q = q.transpose(1, 2)  # the layout attention() hands over
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
+    label = f"qwen3-14b prefill: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal"
+    err = check_attention(torch, q, k, v, True, label)
+    qd = q.contiguous()
+    k_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True), LM_REPS)
+    d_ms = device_ms(torch, lambda: flash_attention_cuda(q, k, v, True), "flash_attention_kernel",
+                     LM_REPS)
+    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), LM_REPS)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
+    nops = 4 * D * attention_pairs(S, S, True) * Hq * B
+    b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
+    row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    out["flash_attention"] = [row]
+    del q, qd, k, v
+
+    rc = get("rwkv6-7b")
+    B, H, T, D = SLOTS, rc.n_heads, 1, rc.d_model // rc.n_heads
+    args = wkv6_inputs(torch, rng, dev, torch.bfloat16, B, H, T, D, True)
+    label = f"rwkv6-7b decode: B={B} H={H} T={T} D={D} bf16, state f32"
+    err = check_wkv6(torch, args, label)
+    k_ms = cuda_ms(torch, lambda: wkv6_cuda(*args), LM_REPS * 10)
+    d_ms = device_ms(torch, lambda: wkv6_cuda(*args), "wkv6_kernel", LM_REPS * 10)
+    p_ms = cuda_ms(torch, lambda: wkv6_plain(*args), LM_REPS * 10)
+    nbytes = (5 * B * H * T * D * 2 + H * D * 2  # r, k, v, w read, y written; u
+              + 2 * B * H * D * D * 4)  # state read and written
+    nops = 7 * B * H * T * D * D
+    b_ms, b_by = bound_ms(nbytes, nops)
+    row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    out["wkv6"] = [row]
+    return out
+
+
+# ----------------------------------------------------------------------
+# phases 6 and 7: the LM path at full width, and the card against the CPU
+# ----------------------------------------------------------------------
+def device_busy(prof):
+    """Device busy ms of a ``torch.profiler`` run (the self time of every
+    device-side event: kernels, copies, memsets), and ms and count by op."""
+    from torch.autograd import DeviceType
+
+    busy, per_op = 0.0, {}
+    for e in prof.key_averages():
+        # device-side events only: a host op's entry repeats the device
+        # time of the kernels it launched
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            ms = e.self_device_time_total / 1e3
+            busy += ms
+            acc = per_op.setdefault(e.key, [0.0, 0])
+            acc[0] += ms
+            acc[1] += e.count
+    return busy, per_op
+
+
+def profiled(torch, label: str, fn) -> None:
+    """Run ``fn`` once under ``torch.profiler``: wall, device busy and
+    idle share, and the device ops that take most of the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy, per_op = device_busy(prof)
+    log(f"  profiled {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %)")
+    for key, (ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"    {ms:.3f} ms  {count} x {key[:100]}")
+
+
+def serve_requests(cfg, n: int, seed: int):
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, rng.integers(3, 13)).astype(np.int32),
+                    max_new=MAX_NEW) for i in range(n)]
+
+
+def timed_engine(torch, cfg, params):
+    """A ``ServeEngine`` that records the host time of each decode step
+    (each ends in the argmax's copy to the host, so it waits for the card)."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class TimedEngine(ServeEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.step_ms = []
+
+        def step(self):
+            t = time.perf_counter()
+            super().step()
+            self.step_ms.append((time.perf_counter() - t) * 1e3)
+
+    return TimedEngine(cfg, params, batch_slots=SLOTS, max_len=MAX_LEN)
+
+
+def serve_run(torch, ops, cfg, params, seed: int) -> dict:
+    """Serve ``SERVE[cfg.name]`` requests through ``ServeEngine.run``; the
+    launch counts are zeroed just before and read just after."""
+    eng = timed_engine(torch, cfg, params)
+    reqs = serve_requests(cfg, SERVE[cfg.name], seed)
+    ops.reset_launches()
+    t = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.LAUNCHES)
+    for r in reqs:
+        if not (r.done and len(r.out) == MAX_NEW and all(0 <= x < cfg.vocab for x in r.out)):
+            raise AssertionError(f"{cfg.name}: request {r.rid} not served: {r.out}")
+    tokens = sum(len(r.out) for r in reqs)
+    res = dict(requests=len(reqs), slots=SLOTS, steps=eng.steps, tokens=tokens,
+               wall_s=wall, tokens_per_s=tokens / wall,
+               step_ms_median=float(np.median(eng.step_ms)),
+               step_ms_min=float(np.min(eng.step_ms)), step_ms_max=float(np.max(eng.step_ms)),
+               launches=launches)
+    log(f"  {cfg.name} served: {json.dumps(res)}")
+    # one more short run under the profiler, for the device's busy share
+    more = serve_requests(cfg, SLOTS, seed + 1)
+    profiled(torch, f"{cfg.name} decode ({SLOTS} requests)", lambda: eng.run(more))
+    return res
+
+
+def lm_phase(torch, ops, dev, seed: int) -> dict:
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+
+    log("phase 6: LM path at full width (random weights)")
+    out = {}
+    # --- Qwen3-14B: prefill, then serve
+    cfg = get("qwen3-14b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}) drawn on the card in "
+        f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (1, PREFILL_LEN)),
+                           device=dev)
+    ops.reset_launches()
+    t = time.perf_counter()
+    logits = lm.prefill(cfg, params, {"tokens": toks})
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    launches = dict(ops.LAUNCHES)
+    if launches["flash_attention"] != cfg.n_layers or launches["wkv6"] != 0:
+        raise AssertionError(f"qwen3-14b prefill launched {launches}; wants "
+                             f"{cfg.n_layers} flash_attention")
+    if logits.shape != (1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"qwen3-14b prefill logits: {tuple(logits.shape)}, not all finite")
+    warm = []
+    for _ in range(3):
+        t = time.perf_counter()
+        lm.prefill(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t) * 1e3)
+    prefill = dict(seq=PREFILL_LEN, cold_ms=cold_ms, warm_ms_median=float(np.median(warm)),
+                   warm_ms=warm, tokens_per_s=PREFILL_LEN / (np.median(warm) / 1e3),
+                   launches=launches)
+    log(f"  {cfg.name} prefill: {json.dumps(prefill)}")
+    profiled(torch, f"{cfg.name} prefill S={PREFILL_LEN}",
+             lambda: lm.prefill(cfg, params, {"tokens": toks}))
+    serve = serve_run(torch, ops, cfg, params, seed)
+    if serve["launches"]["flash_attention"] != 0 or serve["launches"]["wkv6"] != 0:
+        raise AssertionError(f"qwen3-14b decode launched {serve['launches']}: its "
+                             "attention is the plain masked one")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {cfg.name}: peak device memory {peak:.3f} GB")
+    out[cfg.name] = dict(prefill=prefill, serve=serve, peak_gb=peak, params=n_params)
+    del params, logits
+    torch.cuda.empty_cache()
+
+    # --- RWKV6-7B: serve
+    cfg = get("rwkv6-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}) drawn on the card in "
+        f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    serve = serve_run(torch, ops, cfg, params, seed)
+    want = cfg.n_layers * serve["steps"]
+    if serve["launches"]["wkv6"] != want or serve["launches"]["flash_attention"] != 0:
+        raise AssertionError(f"rwkv6-7b serving launched {serve['launches']}; wants "
+                             f"{want} wkv6 ({cfg.n_layers} layers x {serve['steps']} steps)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {cfg.name}: peak device memory {peak:.3f} GB")
+    out[cfg.name] = dict(serve=serve, peak_gb=peak, params=n_params)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_check_phase(torch, ops, dev) -> None:
+    """Reduced float32 configs with the same weights on the card and the
+    CPU: prefill logits within LM_CHECK_TOL, served tokens equal."""
+    import copy
+
+    from repro_torch.configs import get
+    from repro_torch.models import lm
+    from repro_torch.models.config import reduced
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    log(f"phase 7: LM path, card vs CPU (reduced float32 configs, logits within {LM_CHECK_TOL})")
+    for arch, over in (("qwen3-14b", {"n_kv_heads": 2}), ("rwkv6-7b", {})):
+        cfg = reduced(get(arch), **over)
+        cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
+        card = copy.deepcopy(cpu).to(dev)  # Module.to moves in place
+        toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 128)))
+        ops.reset_launches()
+        got = lm.prefill(cfg, card, {"tokens": toks.to(dev)}).cpu()
+        launched = dict(ops.LAUNCHES)
+        want = lm.prefill(cfg, cpu, {"tokens": toks})
+        err = max_abs_err(torch, got, want)
+        ok = bool(torch.allclose(got, want, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL))
+        outs = []
+        for params in (card, cpu):
+            reqs = [Request(rid=i, prompt=np.random.default_rng(i).integers(0, cfg.vocab, 3 + i)
+                            .astype(np.int32), max_new=6) for i in range(5)]
+            ServeEngine(cfg, params, batch_slots=2, max_len=32).run(reqs)
+            outs.append([r.out for r in reqs])
+        same = outs[0] == outs[1]
+        log(f"  {cfg.name} reduced: prefill launches {launched}, logits max_abs_err {err!r} "
+            f"{'ok' if ok else 'MISMATCH'}; served tokens {'equal' if same else 'DIFFER'}")
+        if not (ok and same):
+            raise AssertionError(f"{cfg.name}: the card disagrees with the CPU on the LM path")
 
 
 # ----------------------------------------------------------------------
@@ -250,7 +648,6 @@ def profile_pass(torch, QF, frames, sf: float) -> None:
     kernels, copies, memsets), then the device ops that take most of it
     over the pass.  The profiler adds host cost of its own, so these wall
     times are not the warm times of phase 3."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     log("phase 3b: profiled warm pass (per query: traced wall, device busy)")
@@ -263,16 +660,11 @@ def profile_pass(torch, QF, frames, sf: float) -> None:
             QF.ALL[q](frames, sf=sf, apply_limit=False)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        busy = 0.0
-        for e in prof.key_averages():
-            # device-side events only: a host op's entry repeats the
-            # device time of the kernels it launched
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                ms = e.self_device_time_total / 1e3
-                busy += ms
-                acc = per_op.setdefault(e.key, [0.0, 0])
-                acc[0] += ms
-                acc[1] += e.count
+        busy, ops_here = device_busy(prof)
+        for key, (ms, count) in ops_here.items():
+            acc = per_op.setdefault(key, [0.0, 0])
+            acc[0] += ms
+            acc[1] += count
         walls.append(wall)
         busies.append(busy)
         log(f"  {q}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.3f} %)")
@@ -357,6 +749,10 @@ def main() -> int:
 
     t_all = time.perf_counter()
     dev = torch.device("cuda", 0)
+    # float32 products in full float32 on the card, as on the CPU, so the
+    # LM card-vs-CPU check (phase 7) compares like with like
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     log("device:", gpu_name_power())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -369,8 +765,11 @@ def main() -> int:
             if "registers" in line or "spill" in line or "error" in line.lower():
                 log(f"  nvcc[{name}]: {line.strip()}")
 
-    # phase 2a: edge shapes (a broken kernel fails here, fast)
+    # phase 2a: edge shapes (a broken kernel fails here, fast), then the
+    # LM kernels at their main-path shapes (before any model is loaded)
     edge_phase(torch, seg, sf, dev)
+    lm_edge_phase(torch, dev)
+    lm_shapes = lm_main_shape_phase(torch, dev)
 
     # main-path data
     t = time.perf_counter()
@@ -402,7 +801,7 @@ def main() -> int:
         check_finite(q, res2[q])
         compare_results(q, res2[q], res1[q])
     log(f"  total: cold {sum(ms1.values()):.3f} ms, warm {sum(ms2.values()):.3f} ms")
-    missing = [name for name, n in launches.items() if n == 0]
+    missing = [name for name in ("segment_sum", "substr_find") if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
     profile_pass(torch, QF, frames, args.sf)
@@ -418,6 +817,16 @@ def main() -> int:
     for q in on_cpu:
         compare_results(q, on_card[q], on_cpu[q])
     log(f"  22 queries agree (ints/codes/order exact, floats rtol {QUERY_RTOL})")
+    del small, on_card, on_cpu
+
+    # phases 6 and 7: the LM path at full width, then card vs CPU
+    lm_runs = lm_phase(torch, ops, dev, args.seed)
+    lm_check_phase(torch, ops, dev)
+    # launches of each LM kernel in its main-path run: K4 in Qwen3-14B's
+    # prefill, K5 in RWKV6-7B's serving run
+    launches["flash_attention"] = lm_runs["qwen3-14b"]["prefill"]["launches"]["flash_attention"]
+    launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
+    shapes.update(lm_shapes)
 
     # phase 5: report
     sources = {
@@ -425,6 +834,9 @@ def main() -> int:
                         "src/repro/kernels/segment_reduce.py:36"),
         "substr_find": ("src/repro_torch/kernels/csrc/substr_find.cu",
                         "src/repro/kernels/substr_find.py:43"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:65"),
+        "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
     }
     kernels = []
     for name, rows in shapes.items():
@@ -433,7 +845,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": row["max_abs_err"],
-            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
         })
     log(f"wall time {time.perf_counter() - t_all:.3f} s")

@@ -33,10 +33,16 @@ NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 #: C signature of each kernel source's entry point: (symbol, argtypes).
 SIGNATURES = {
     "segment_sum": ("repro_segment_sum", [_I, _P, _P, _L, _L, _P, _P]),
     "substr_find": ("repro_substr_find", [_P, _P, _P, _I, _P, _L, _I, _P, _P]),
+    "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "flash_attention": (
+        "repro_flash_attention",
+        [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
+    ),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -44,7 +50,7 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
 BUILD_LOG: Dict[str, str] = {}
 
 _LOCK = threading.Lock()
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -99,17 +105,16 @@ def build_all() -> List[Path]:
 
 def kernel(name: str):
     """The ctypes entry point of kernel ``name``, building on first use."""
-    lib = _LIBS.get(name)
-    if lib is None:
+    fn = _FNS.get(name)
+    if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        _LIBS[name] = lib
-    symbol, argtypes = SIGNATURES[name]
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        symbol, argtypes = SIGNATURES[name]
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
     return fn
 
 

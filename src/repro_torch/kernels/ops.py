@@ -7,13 +7,15 @@ launch raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .segment_reduce import segment_sum_cuda, segment_sum_plain
 from .substr_find import substr_find_cuda, substr_find_plain
+from .wkv6 import wkv6_cuda, wkv6_plain
 
 
 def _route(t: torch.Tensor, fn: str) -> str:
@@ -49,3 +51,26 @@ def exists_before(packed, lens, pat_a: torch.Tensor, pat_b: torch.Tensor) -> tor
     start = torch.where(fa >= 0, fa + int(pat_a.shape[0]), 0).to(torch.int32)
     fb = substr_find(packed, lens, pat_b, start=start)
     return (fa >= 0) & (fb >= 0)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """Grouped-query attention, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) (K4)."""
+    if _route(q, "flash_attention") == "cuda":
+        return flash_attention_cuda(q, k, v, causal)
+    return flash_attention_plain(q, k, v, causal)
+
+
+def wkv6(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence over (B, H, T, D) inputs, state carried (K5)."""
+    if _route(r, "wkv6") == "cuda":
+        return wkv6_cuda(r, k, v, w, u, state)
+    return wkv6_plain(r, k, v, w, u, state)

@@ -4,8 +4,10 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention_plain
 from .segment_reduce import segment_sum_plain
 from .substr_find import substr_find_plain
+from .wkv6 import wkv6_plain
 
 substr_find = substr_find_plain
 
@@ -21,3 +23,9 @@ def segment_sum_sorted(values: torch.Tensor, seg_ids: torch.Tensor, num_segments
     """Segment sum over sorted ids (K1's contract); the plain version
     takes ids in any order, so sorted ids are just a special case."""
     return segment_sum_plain(values, seg_ids.to(torch.int64), num_segments)
+
+
+#: K4's contract: q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D), GQA by head groups
+mha_reference = flash_attention_plain
+#: K5's contract: the RWKV6 recurrence, returning (y, final state f32)
+wkv6_reference = wkv6_plain

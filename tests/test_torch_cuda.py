@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and a query on the card against the CPU path.
+version, and a query and the reduced LM path on the card against the
+CPU path.
 
 Every test needs a CUDA device and skips without one.  The file imports
 neither jax nor the JAX package, so it also runs on a machine without
@@ -7,15 +8,23 @@ them (``tests/conftest.py`` imports jax, hence ``--noconftest``):
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get
 from repro_torch.data import tpch
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.segment_reduce import segment_sum_cuda, segment_sum_plain
 from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
+from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+from repro_torch.models import lm
+from repro_torch.models.config import reduced
 from repro_torch.queries import tpch_frames
+from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +89,76 @@ def test_query_on_the_card_matches_the_cpu_path(cuda_device, qname):
             np.testing.assert_allclose(got[c], want[c], rtol=1e-8, atol=0)
         else:
             np.testing.assert_array_equal(got[c], want[c])
+
+
+# tolerances of tests/test_kernels.py: (wkv6, attention) per dtype
+KERNEL_TOL = {torch.float32: (1e-4, 2e-5), torch.bfloat16: (4e-2, 2e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,D", [(1, 2, 1, 16), (2, 3, 7, 32), (4, 64, 1, 64), (1, 2, 64, 128)])
+def test_wkv6_kernel_matches_plain_and_chains_state(cuda_device, dtype, B, H, T, D):
+    rng = np.random.default_rng(B * T + D)
+    mk = lambda: torch.as_tensor(rng.normal(size=(B, H, T, D)) * 0.5, device=cuda_device).to(dtype)
+    r, k, v = mk(), mk(), mk()
+    w = torch.as_tensor(rng.uniform(0.7, 0.999, (B, H, T, D)), device=cuda_device).to(dtype)
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).to(dtype)
+    s0 = torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+    tol = KERNEL_TOL[dtype][0]
+    for state in (None, s0):
+        y, s = wkv6_cuda(r, k, v, w, u, state)
+        y_want, s_want = wkv6_plain(r, k, v, w, u, state)
+        torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+    if T > 1:
+        h = T // 2
+        y1, s1 = wkv6_cuda(r[:, :, :h].contiguous(), k[:, :, :h].contiguous(),
+                           v[:, :, :h].contiguous(), w[:, :, :h].contiguous(), u)
+        y2, s2 = wkv6_cuda(r[:, :, h:].contiguous(), k[:, :, h:].contiguous(),
+                           v[:, :, h:].contiguous(), w[:, :, h:].contiguous(), u, s1)
+        y, s = wkv6_cuda(r, k, v, w, u)
+        torch.testing.assert_close(torch.cat([y1, y2], 2).float(), y.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(s2, s, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    (1, 4, 2, 128, 128, 32), (2, 2, 2, 100, 100, 16), (1, 5, 1, 37, 200, 64),
+    (1, 4, 2, 1, 77, 96), (1, 10, 2, 130, 130, 128),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, causal, B, Hq, Hkv, Sq, Sk, D):
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
+    q = q.transpose(1, 2)  # strided, as the model hands it over
+    got = flash_attention_cuda(q, k, v, causal)
+    want = flash_attention_plain(q, k, v, causal)
+    tol = KERNEL_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_lm_path_on_the_card_matches_the_cpu(cuda_device):
+    """Reduced float32 qwen3-14b (GQA 2) and rwkv6-7b with the same weights
+    on both devices: prefill logits within 1e-4, served tokens equal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, over in (("qwen3-14b", {"n_kv_heads": 2}), ("rwkv6-7b", {})):
+        cfg = reduced(get(arch), **over)
+        cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
+        card = copy.deepcopy(cpu).to(cuda_device)  # Module.to moves in place
+        toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 96)))
+        ops.reset_launches()
+        got = lm.prefill(cfg, card, {"tokens": toks.to(cuda_device)})
+        name = "wkv6" if cfg.family == "rwkv6" else "flash_attention"
+        assert ops.LAUNCHES[name] == cfg.n_layers
+        want = lm.prefill(cfg, cpu, {"tokens": toks})
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        prompts = [np.random.default_rng(i).integers(0, cfg.vocab, 3 + i).astype(np.int32)
+                   for i in range(5)]
+        outs = []
+        for params in (card, cpu):
+            reqs = [Request(rid=i, prompt=p, max_new=5) for i, p in enumerate(prompts)]
+            ServeEngine(cfg, params, batch_slots=2, max_len=32).run(reqs)
+            outs.append([r.out for r in reqs])
+        assert outs[0] == outs[1]

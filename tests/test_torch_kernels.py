@@ -20,8 +20,10 @@ from repro.kernels.substr_find import exists_before_pallas, substr_find_pallas
 from repro_torch.core import strings as tstrings
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.segment_reduce import run_ranks_sorted, segment_sum_cuda
 from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
+from repro_torch.kernels.wkv6 import wkv6_cuda
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -212,7 +214,12 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
             torch.zeros((3, 4), dtype=torch.uint8), torch.zeros(3, dtype=torch.int32),
             torch.zeros(1, dtype=torch.uint8),
         )
-    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0}
+    x = torch.zeros((1, 2, 3, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_cuda(x, x, x, x, torch.zeros((2, 16)))
+    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0, "wkv6": 0, "flash_attention": 0}
 
 
 def test_plain_versions_launch_nothing_on_cpu():
@@ -220,4 +227,4 @@ def test_plain_versions_launch_nothing_on_cpu():
     ops.segment_sum(torch.ones(10, dtype=torch.int64), torch.arange(10) % 3, 3)
     buf, lens = _pack(["abc", "xabc"], 8)
     ops.exists_before(_t(buf), _t(lens), _t(np.frombuffer(b"a", np.uint8)), _t(np.frombuffer(b"c", np.uint8)))
-    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0}
+    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0, "wkv6": 0, "flash_attention": 0}
