@@ -10,8 +10,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. each kernel against its plain PyTorch version on the card, at edge
    shapes (2a) and at the shapes the main paths give it (2b: TPC-H q1 and
-   q18 group sums, the q13 ``o_comment`` dictionary, Qwen3-14B's prefill
-   attention, RWKV6-7B's decode recurrence), with times and bounds;
+   q18 group sums, the q13 ``o_comment`` dictionary, the tuple hash of
+   lineitem's (l_orderkey, l_linenumber), Qwen3-14B's prefill attention
+   on the tensor-core kernel beside the CUDA-core one, RWKV6-7B's decode
+   recurrence), with times and bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
@@ -21,15 +23,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
 4. the card against the CPU plain path on all 22 queries at SF 0.01:
    ints, codes and row order exactly, floats within rtol 1e-8;
 6. the LM path at full width with random weights from ``--seed``:
-   Qwen3-14B prefilled at B=1, S=4096 (exactly one attention-kernel
-   launch per layer) and served (8 requests over 4 slots), then
-   RWKV6-7B served (16 requests over 4 slots, exactly one WKV launch per
-   layer and decode step); prefill and decode-step times, tokens per
-   second, peak device memory, and the device's busy share of a
-   profiled prefill and decode pass;
+   Qwen3-14B prefilled at B=1, S=4096 (exactly one launch of the bf16
+   tensor-core attention kernel per layer, none of the f32 one) and
+   served (8 requests over 4 slots), then RWKV6-7B served (16 requests
+   over 4 slots, exactly one WKV launch per layer and decode step);
+   prefill and decode-step times, tokens per second, peak device
+   memory, and the device's busy share of a profiled prefill and decode
+   pass;
 7. the card against the CPU on the LM path: reduced float32 Qwen3-14B
-   and RWKV6-7B with the same weights on both devices, prefill logits
-   within 1e-4 and served tokens equal;
+   (attention through the f32 CUDA-core kernel) and RWKV6-7B with the
+   same weights on both devices, prefill logits within 1e-4 and served
+   tokens equal;
 5. one JSON line describing every kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -50,9 +54,9 @@ ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for the
 # bound each kernel is held to: device-memory bandwidth; the
-# non-tensor-core float32 rate, for the segment sum, the substring search
-# and the WKV recurrence (the table has no float64 or int64 entry; those
-# kernels are bounded by bytes by orders of magnitude either way); and
+# non-tensor-core float32 rate, for the segment sum, the substring search,
+# the tuple hash and the WKV recurrence (the table has no integer, float64
+# or int64 entry; those kernels are bounded by bytes either way); and
 # the bf16 tensor-core rate, for attention on bf16 inputs.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
@@ -210,6 +214,36 @@ def edge_phase(torch, seg, sf, dev) -> None:
                 check_substr_find(torch, sf, packed, lens, p, st, "edge")
 
 
+def check_hash32x2(torch, cols, label):
+    from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
+
+    got = hash32x2_cuda(cols)
+    want = hash32x2_plain(cols)
+    torch.cuda.synchronize()
+    # uint32 has few operators on the card: compare the bits as int32
+    ok = got.shape == want.shape and torch.equal(got.view(torch.int32), want.view(torch.int32))
+    log(f"  hash32x2 {label}: cols {tuple(cols.shape)} {cols.dtype} bit for bit "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"hash32x2 kernel disagrees with its plain version at {label}")
+
+
+def hash_edge_phase(torch, dev) -> None:
+    log("phase 2a: edge shapes of hash32x2 (K3)")
+    rng = np.random.default_rng(13)
+    # the JAX test's shapes, no rows, no columns, a length that is no
+    # multiple of any block, rows too wide to stage in shared memory
+    shapes = [(n, k) for n in (1, 7, 1024, 3000) for k in (1, 2, 5)]
+    shapes += [(0, 2), (5, 0), (1_000_003, 2), (999, 40)]
+    for n, k in shapes:
+        cols = torch.as_tensor(rng.integers(0, 2**31, (n, k)).astype(np.int32), device=dev)
+        check_hash32x2(torch, cols, "edge")
+    bits = rng.integers(2**31, 2**32, (4099, 3), dtype=np.uint64).astype(np.uint32)
+    for dtype in (torch.uint32, torch.int32):  # >= 2^31 as uint32; negative as int32
+        check_hash32x2(torch, torch.as_tensor(bits.view(np.int32), device=dev).view(dtype),
+                       "high bit set")
+
+
 def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
     """Each kernel at the shapes the main path gives it, with times."""
     from repro_torch.core import col, d, strings
@@ -275,6 +309,31 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
         log("   ", json.dumps(row))
         find_rows.append(row)
     out["substr_find"] = find_rows
+
+    # K3: lineitem's composite key, the tuple a hash partition of it hashes.
+    # No path of the engine calls K3 (it routes rows with splitmix64), so
+    # its launches are those of one call of the op, ops.hash32x2.
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
+
+    keys = torch.stack([li.col_values(c).to(torch.int32)
+                        for c in ("l_orderkey", "l_linenumber")], dim=1).contiguous()
+    label = "lineitem (l_orderkey, l_linenumber) as int32"
+    check_hash32x2(torch, keys, label)
+    ops.reset_launches()
+    ops.hash32x2(keys)
+    launches = ops.LAUNCHES["hash32x2"]
+    k_ms = cuda_ms(torch, lambda: hash32x2_cuda(keys), REPS)
+    d_ms = device_ms(torch, lambda: hash32x2_cuda(keys), "hash32x2_kernel", REPS)
+    p_ms = cuda_ms(torch, lambda: hash32x2_plain(keys), REPS)
+    n, k = keys.shape
+    nbytes = 4 * n * k + 8 * n  # columns read once, two uint32 lanes written
+    b_ms, b_by = bound_ms(nbytes, 2 * n * k * 20)  # about 20 integer ops per column and lane
+    row = dict(label=f"{label}: {n} x {k}", max_abs_err=0.0, ms=k_ms, device_ms=d_ms,
+               plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               launches=launches)
+    log("   ", json.dumps(row))
+    out["hash32x2"] = [row]
     return out
 
 
@@ -287,18 +346,31 @@ def allclose_err(torch, got, want, tol: float):
     return max_abs_err(torch, g, w), bool(((g - w).abs() <= tol + tol * w.abs()).all())
 
 
-def check_attention(torch, q, k, v, causal: bool, label: str) -> float:
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+def check_attention(torch, q, k, v, causal: bool, label: str, cuda_cores: bool = False) -> float:
+    """``flash_attention_cuda`` (bf16 on the tensor-core kernel, f32 on the
+    CUDA-core one), or with ``cuda_cores`` the CUDA-core kernel in either
+    dtype, against the plain version; the launch counts must show which
+    kernel ran."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_cuda_cores, flash_attention_plain,
+    )
 
-    got = flash_attention_cuda(q, k, v, causal)
+    bf16_route = q.dtype == torch.bfloat16 and not cuda_cores
+    name = "flash_attention_sm90" if bf16_route else "flash_attention"
+    before = dict(build.LAUNCHES)
+    got = (flash_attention_cuda_cores if cuda_cores else flash_attention_cuda)(q, k, v, causal)
+    ran = [n for n in build.LAUNCHES if build.LAUNCHES[n] != before[n]]
     want = flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
     tol = ATTN_TOL[str(q.dtype).replace("torch.", "")]
     err, ok = allclose_err(torch, got, want, tol)
-    log(f"  flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+    log(f"  {name} {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
         f"causal={causal} max_abs_err={err!r} (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+    if ran != [name]:
+        raise AssertionError(f"{label}: {q.dtype} attention launched {ran}, wants [{name}]")
     if not ok:
-        raise AssertionError(f"flash_attention kernel disagrees with its plain version at {label}")
+        raise AssertionError(f"{name} kernel disagrees with its plain version at {label}")
     return err
 
 
@@ -333,13 +405,21 @@ def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool):
 def lm_edge_phase(torch, dev) -> None:
     from repro_torch.kernels.wkv6 import wkv6_cuda
 
-    log("phase 2a: edge shapes of flash_attention (K4) and wkv6 (K5)")
+    log("phase 2a: edge shapes of flash_attention (K4: bf16 on the tensor-core kernel, "
+        "f32 on the CUDA-core one) and wkv6 (K5)")
     rng = np.random.default_rng(11)
     for dtype in (torch.float32, torch.bfloat16):
-        # (B, Hq, Hkv, Sq, Sk, D): ragged lengths, Sq < Sk, D 16..128, groups 1, 2, 5
+        # (B, Hq, Hkv, Sq, Sk, D): ragged lengths around the 64- and 128-row
+        # tiles, Sq < Sk, D 16..128 (D < 64 and D % 64 != 0 are padded by
+        # the tensor-core kernel), groups 1, 2, 5; q strided as the model
+        # hands it over
         for B, Hq, Hkv, Sq, Sk, D in [(2, 2, 2, 100, 100, 16), (1, 4, 2, 37, 200, 64),
                                       (1, 10, 2, 130, 130, 96), (1, 5, 1, 1, 77, 128),
-                                      (2, 40, 8, 64, 64, 128), (1, 4, 4, 257, 300, 64)]:
+                                      (2, 40, 8, 64, 64, 128), (1, 4, 4, 257, 300, 64),
+                                      (1, 2, 2, 127, 127, 80), (1, 4, 2, 129, 129, 112),
+                                      (2, 5, 1, 200, 200, 48), (1, 10, 2, 37, 129, 128),
+                                      (1, 2, 1, 1, 1, 16), (1, 4, 4, 129, 200, 32),
+                                      (1, 5, 5, 127, 300, 96)]:
             q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(dtype)
             k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
             v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
@@ -378,7 +458,9 @@ def lm_main_shape_phase(torch, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_cuda_cores, flash_attention_plain, flash_attention_sm90,
+    )
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
     log("phase 2b: LM main-path shapes")
@@ -391,21 +473,31 @@ def lm_main_shape_phase(torch, dev) -> dict:
     k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
     v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
     label = f"qwen3-14b prefill: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal"
-    err = check_attention(torch, q, k, v, True, label)
     qd = q.contiguous()
-    k_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True), LM_REPS)
-    d_ms = device_ms(torch, lambda: flash_attention_cuda(q, k, v, True), "flash_attention_kernel",
-                     LM_REPS)
-    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), LM_REPS)
-    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
     nops = 4 * D * attention_pairs(S, S, True) * Hq * B
     b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
-    row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-               library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
-    log("   ", json.dumps(row))
-    out["flash_attention"] = [row]
+    # the plain version and scaled_dot_product_attention, timed once for both kernels
+    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), LM_REPS)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
+    # the tensor-core kernel (the model's bf16 path), then the CUDA-core
+    # kernel on the same bf16 inputs, its time before this kernel existed
+    for name, fn, key, cores in (
+        ("flash_attention_sm90", flash_attention_sm90, "flash_attention_sm90_kernel", False),
+        ("flash_attention", flash_attention_cuda_cores, "flash_attention_kernel", True),
+    ):
+        err = check_attention(torch, q, k, v, True, label, cuda_cores=cores)
+        reps = LM_REPS * (5 if name == "flash_attention_sm90" else 1)
+        k_ms = cuda_ms(torch, lambda: fn(q, k, v, True), reps)
+        d_ms = device_ms(torch, lambda: fn(q, k, v, True), key, reps)
+        where = "" if name == "flash_attention_sm90" else (
+            "; the CUDA-core kernel, whose model path is float32 (phase 7)")
+        row = dict(label=label + where, kernel=name, max_abs_err=err, ms=k_ms, device_ms=d_ms,
+                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, ops=nops)
+        log("   ", json.dumps(row))
+        out[name] = [row]
     del q, qd, k, v
 
     rc = get("rwkv6-7b")
@@ -541,9 +633,10 @@ def lm_phase(torch, ops, dev, seed: int) -> dict:
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t) * 1e3
     launches = dict(ops.LAUNCHES)
-    if launches["flash_attention"] != cfg.n_layers or launches["wkv6"] != 0:
+    if (launches["flash_attention_sm90"] != cfg.n_layers or launches["flash_attention"] != 0
+            or launches["wkv6"] != 0):
         raise AssertionError(f"qwen3-14b prefill launched {launches}; wants "
-                             f"{cfg.n_layers} flash_attention")
+                             f"{cfg.n_layers} flash_attention_sm90 and nothing else")
     if logits.shape != (1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"qwen3-14b prefill logits: {tuple(logits.shape)}, not all finite")
     warm = []
@@ -559,7 +652,7 @@ def lm_phase(torch, ops, dev, seed: int) -> dict:
     profiled(torch, f"{cfg.name} prefill S={PREFILL_LEN}",
              lambda: lm.prefill(cfg, params, {"tokens": toks}))
     serve = serve_run(torch, ops, cfg, params, seed)
-    if serve["launches"]["flash_attention"] != 0 or serve["launches"]["wkv6"] != 0:
+    if sum(serve["launches"].values()) != 0:
         raise AssertionError(f"qwen3-14b decode launched {serve['launches']}: its "
                              "attention is the plain masked one")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -579,7 +672,7 @@ def lm_phase(torch, ops, dev, seed: int) -> dict:
         f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     serve = serve_run(torch, ops, cfg, params, seed)
     want = cfg.n_layers * serve["steps"]
-    if serve["launches"]["wkv6"] != want or serve["launches"]["flash_attention"] != 0:
+    if serve["launches"]["wkv6"] != want or sum(serve["launches"].values()) != want:
         raise AssertionError(f"rwkv6-7b serving launched {serve['launches']}; wants "
                              f"{want} wkv6 ({cfg.n_layers} layers x {serve['steps']} steps)")
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -590,9 +683,11 @@ def lm_phase(torch, ops, dev, seed: int) -> dict:
     return out
 
 
-def lm_check_phase(torch, ops, dev) -> None:
+def lm_check_phase(torch, ops, dev) -> dict:
     """Reduced float32 configs with the same weights on the card and the
-    CPU: prefill logits within LM_CHECK_TOL, served tokens equal."""
+    CPU: prefill logits within LM_CHECK_TOL, served tokens equal.  Each
+    card prefill must launch its model's f32 kernel once per layer and
+    nothing else; returns those launch counts by arch."""
     import copy
 
     from repro_torch.configs import get
@@ -601,7 +696,9 @@ def lm_check_phase(torch, ops, dev) -> None:
     from repro_torch.serve.engine import Request, ServeEngine
 
     log(f"phase 7: LM path, card vs CPU (reduced float32 configs, logits within {LM_CHECK_TOL})")
-    for arch, over in (("qwen3-14b", {"n_kv_heads": 2}), ("rwkv6-7b", {})):
+    out = {}
+    for arch, over, kernel in (("qwen3-14b", {"n_kv_heads": 2}, "flash_attention"),
+                               ("rwkv6-7b", {}, "wkv6")):
         cfg = reduced(get(arch), **over)
         cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
         card = copy.deepcopy(cpu).to(dev)  # Module.to moves in place
@@ -623,6 +720,11 @@ def lm_check_phase(torch, ops, dev) -> None:
             f"{'ok' if ok else 'MISMATCH'}; served tokens {'equal' if same else 'DIFFER'}")
         if not (ok and same):
             raise AssertionError(f"{cfg.name}: the card disagrees with the CPU on the LM path")
+        if launched[kernel] != cfg.n_layers or sum(launched.values()) != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} reduced f32 prefill launched {launched}; wants "
+                                 f"{cfg.n_layers} {kernel}")
+        out[arch] = launched
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -768,6 +870,7 @@ def main() -> int:
     # phase 2a: edge shapes (a broken kernel fails here, fast), then the
     # LM kernels at their main-path shapes (before any model is loaded)
     edge_phase(torch, seg, sf, dev)
+    hash_edge_phase(torch, dev)
     lm_edge_phase(torch, dev)
     lm_shapes = lm_main_shape_phase(torch, dev)
 
@@ -821,11 +924,16 @@ def main() -> int:
 
     # phases 6 and 7: the LM path at full width, then card vs CPU
     lm_runs = lm_phase(torch, ops, dev, args.seed)
-    lm_check_phase(torch, ops, dev)
-    # launches of each LM kernel in its main-path run: K4 in Qwen3-14B's
-    # prefill, K5 in RWKV6-7B's serving run
-    launches["flash_attention"] = lm_runs["qwen3-14b"]["prefill"]["launches"]["flash_attention"]
+    f32_runs = lm_check_phase(torch, ops, dev)
+    # launches of each kernel in its main-path run: K4's bf16 kernel in
+    # Qwen3-14B's prefill, its f32 kernel in the reduced f32 Qwen3-14B
+    # prefill of phase 7, K5 in RWKV6-7B's serving run, K3 in its one call
+    # of ops.hash32x2 (no path of the engine calls it)
+    launches["flash_attention_sm90"] = (
+        lm_runs["qwen3-14b"]["prefill"]["launches"]["flash_attention_sm90"])
+    launches["flash_attention"] = f32_runs["qwen3-14b"]["flash_attention"]
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
+    launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
     shapes.update(lm_shapes)
 
     # phase 5: report
@@ -834,6 +942,10 @@ def main() -> int:
                         "src/repro/kernels/segment_reduce.py:36"),
         "substr_find": ("src/repro_torch/kernels/csrc/substr_find.cu",
                         "src/repro/kernels/substr_find.py:43"),
+        "hash32x2": ("src/repro_torch/kernels/csrc/hash32x2.cu",
+                     "src/repro/kernels/hash32x2.py:38"),
+        "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                                 "src/repro/kernels/flash_attention.py:65"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:65"),
         "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
@@ -849,6 +961,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
         })
+    idle = [k["name"] for k in kernels if k["launches"] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     log(f"wall time {time.perf_counter() - t_all:.3f} s")
     log(json.dumps({"kernels": kernels}))
     log(gpu_name_power())

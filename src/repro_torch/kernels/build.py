@@ -43,6 +43,11 @@ SIGNATURES = {
         "repro_flash_attention",
         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
     ),
+    "flash_attention_sm90": (
+        "repro_flash_attention_sm90",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
+    ),
+    "hash32x2": ("repro_hash32x2", [_P, _L, _I, _P, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}

@@ -1,11 +1,18 @@
 """Causal or full grouped-query attention (K4) with an online softmax.
 
-``flash_attention_cuda`` launches the hand-written kernel in
-``csrc/flash_attention.cu``, the Hopper counterpart of the TPU kernel
-``flash_attention_pallas``; ``flash_attention_plain`` is the plain
-PyTorch version (the softmax of ``ref.mha_reference``, computed in f32).
-``kernels.ops.flash_attention`` picks between them by the tensor's
-device.
+``flash_attention_cuda`` is the Hopper counterpart of the TPU kernel
+``flash_attention_pallas``, with one hand-written kernel per dtype:
+
+* bfloat16 runs ``csrc/flash_attention_sm90.cu`` (``flash_attention_sm90``):
+  the products on the tensor cores (wgmma), K and V copied by TMA into a
+  ring of shared-memory stages;
+* float32 runs ``csrc/flash_attention.cu`` (``flash_attention_cuda_cores``):
+  everything in f32 on the CUDA cores, the only kernel that meets the
+  f32 tolerance of 2e-5 (the tensor cores' TF32 would not).
+
+``flash_attention_plain`` is the plain PyTorch version (the softmax of
+``ref.mha_reference``, computed in f32).  ``kernels.ops.flash_attention``
+picks between the kernel and the plain version by the tensor's device.
 
 q is (B, Hq, Sq, D) and k, v are (B, Hkv, Sk, D): query head h reads kv
 head h // (Hq / Hkv).  The causal mask keeps key j for query i when
@@ -83,26 +90,68 @@ def _check_kernel_args(q, k, v) -> None:
             raise ValueError(f"flash_attention kernel: {name}'s last dim is not contiguous")
 
 
-def flash_attention_cuda(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
-) -> torch.Tensor:
-    """``flash_attention_plain`` on the card, through the CUDA kernel.
-    Takes any batch, head and sequence strides; the output is contiguous."""
-    _check_shapes(q, k, v, causal)
-    _check_kernel_args(q, k, v)
+def _launch(name: str, lead: list, q, k, v, causal: bool) -> torch.Tensor:
+    """Launch kernel ``name``; ``lead`` are the C arguments before the
+    pointers (the CUDA-core kernel's dtype code)."""
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
-    fn = build.kernel("flash_attention")
+    fn = build.kernel(name)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             B, Hq, Hkv, Sq, Sk, D, *strides, float(1.0 / math.sqrt(D)), int(causal), stream,
         )
-        build.LAUNCHES["flash_attention"] += 1
-    build.check("flash_attention", err)
+        build.LAUNCHES[name] += 1
+    build.check(name, err)
     return o
+
+
+def flash_attention_cuda_cores(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """The CUDA-core kernel (``csrc/flash_attention.cu``), f32 or bf16.
+    Takes any batch, head and sequence strides; the output is contiguous."""
+    _check_shapes(q, k, v, causal)
+    _check_kernel_args(q, k, v)
+    return _launch("flash_attention", [_DTYPE_CODES[q.dtype]], q, k, v, causal)
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the copy engine can describe it (base 16-byte aligned, the
+    stride of every dim longer than 1 a multiple of 16 bytes), else a
+    contiguous copy in a new allocation, which it can (``contiguous()``
+    would keep a misaligned base that is already contiguous)."""
+    ok = t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1
+    )
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention_sm90(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """The tensor-core kernel (``csrc/flash_attention_sm90.cu``), bf16 only.
+    Takes any batch, head and sequence strides; the output is contiguous."""
+    _check_shapes(q, k, v, causal)
+    _check_kernel_args(q, k, v)
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention_sm90 takes bfloat16, got {q.dtype}")
+    q, k, v = (_tma_ready(t) for t in (q, k, v))
+    return _launch("flash_attention_sm90", [], q, k, v, causal)
+
+
+def flash_attention_cuda(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """``flash_attention_plain`` on the card: bf16 through the tensor-core
+    kernel, f32 through the CUDA-core kernel, any other dtype raises."""
+    if q.dtype == torch.bfloat16:
+        return flash_attention_sm90(q, k, v, causal)
+    if q.dtype == torch.float32:
+        return flash_attention_cuda_cores(q, k, v, causal)
+    raise TypeError(f"flash_attention kernel takes float32 or bfloat16, got {q.dtype}")

@@ -13,6 +13,7 @@ import torch
 
 from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .hash32x2 import hash32x2_cuda, hash32x2_plain
 from .segment_reduce import segment_sum_cuda, segment_sum_plain
 from .substr_find import substr_find_cuda, substr_find_plain
 from .wkv6 import wkv6_cuda, wkv6_plain
@@ -51,6 +52,13 @@ def exists_before(packed, lens, pat_a: torch.Tensor, pat_b: torch.Tensor) -> tor
     start = torch.where(fa >= 0, fa + int(pat_a.shape[0]), 0).to(torch.int32)
     fb = substr_find(packed, lens, pat_b, start=start)
     return (fa >= 0) & (fb >= 0)
+
+
+def hash32x2(cols: torch.Tensor) -> torch.Tensor:
+    """Two-lane uint32 tuple hash of (n, k) int32/uint32 columns (K3)."""
+    if _route(cols, "hash32x2") == "cuda":
+        return hash32x2_cuda(cols)
+    return hash32x2_plain(cols)
 
 
 def flash_attention(

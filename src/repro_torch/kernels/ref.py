@@ -5,10 +5,14 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention_plain
+from .hash32x2 import fmix32, hash32x2_plain  # noqa: F401  (fmix32 re-exported)
 from .segment_reduce import segment_sum_plain
 from .substr_find import substr_find_plain
 from .wkv6 import wkv6_plain
 
+#: K3's contract: (n, k) int32/uint32 -> (n, 2) uint32; ``fmix32`` on
+#: int64 values in [0, 2^32), as PyTorch has no uint32 shift on the CPU
+hash32x2 = hash32x2_plain
 substr_find = substr_find_plain
 
 

@@ -18,6 +18,7 @@ from repro_torch.configs import get
 from repro_torch.data import tpch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
 from repro_torch.kernels.segment_reduce import segment_sum_cuda, segment_sum_plain
 from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
@@ -126,6 +127,10 @@ def test_wkv6_kernel_matches_plain_and_chains_state(cuda_device, dtype, B, H, T,
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
     (1, 4, 2, 128, 128, 32), (2, 2, 2, 100, 100, 16), (1, 5, 1, 37, 200, 64),
     (1, 4, 2, 1, 77, 96), (1, 10, 2, 130, 130, 128),
+    # the tensor-core kernel's 128-row tiles: ragged Sq and Sk around 128,
+    # D not a multiple of 64, groups 1, 2 and 5, Sq < Sk
+    (1, 2, 2, 127, 127, 80), (1, 4, 2, 129, 129, 112), (2, 5, 1, 200, 200, 48),
+    (1, 2, 1, 37, 300, 128), (1, 10, 2, 257, 257, 64),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, causal, B, Hq, Hkv, Sq, Sk, D):
     rng = np.random.default_rng(Sq + Sk + D)
@@ -133,10 +138,47 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, causal, B, Hq,
     k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
     v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
     q = q.transpose(1, 2)  # strided, as the model hands it over
+    ops.reset_launches()
     got = flash_attention_cuda(q, k, v, causal)
+    # bf16 runs on the tensor cores, f32 on the CUDA cores
+    bf16 = dtype == torch.bfloat16
+    assert (ops.LAUNCHES["flash_attention_sm90"], ops.LAUNCHES["flash_attention"]) == (
+        (1, 0) if bf16 else (0, 1))
     want = flash_attention_plain(q, k, v, causal)
     tol = KERNEL_TOL[dtype][1]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_sm90_takes_layouts_the_copy_engine_cannot_describe(cuda_device):
+    # q one element into its buffer (base not 16-byte aligned) and k with
+    # a sequence stride of D + 1 elements: the wrapper copies those first
+    rng = np.random.default_rng(5)
+    B, Hq, Hkv, S, D = 1, 4, 2, 150, 64
+    qbuf = torch.as_tensor(rng.normal(size=(B * Hq * S * D + 1,)), device=cuda_device)
+    q = qbuf.to(torch.bfloat16)[1:].view(B, Hq, S, D)
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D + 1)), device=cuda_device)
+    k = k.to(torch.bfloat16)[..., :D]
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=cuda_device).to(torch.bfloat16)
+    assert q.data_ptr() % 16 != 0 and k.stride(2) % 8 != 0
+    for causal in (True, False):
+        got = flash_attention_cuda(q, k, v, causal)
+        want = flash_attention_plain(q, k, v, causal)
+        tol = KERNEL_TOL[torch.bfloat16][1]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (7, 2), (1024, 5), (3000, 5), (5, 0), (1_000_003, 2), (999, 40)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.uint32])
+def test_hash32x2_kernel_matches_plain(cuda_device, n, k, dtype):
+    rng = np.random.default_rng(n + k)
+    bits = rng.integers(0, 2**32, size=(n, k), dtype=np.uint64).astype(np.uint32)  # high bit set in half
+    cols = torch.as_tensor(bits.view(np.int32), device=cuda_device).view(dtype)
+    ops.reset_launches()
+    got = hash32x2_cuda(cols)
+    assert ops.LAUNCHES["hash32x2"] == 1 and got.dtype == torch.uint32 and got.shape == (n, 2)
+    want = hash32x2_plain(cols)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # bit for bit
+    assert hash32x2_cuda(cols[:0]).shape == (0, 2)
 
 
 def test_lm_path_on_the_card_matches_the_cpu(cuda_device):

@@ -14,13 +14,17 @@ import jax.numpy as jnp
 
 from repro.core import strings as jstrings
 from repro.kernels import ref as jref
+from repro.kernels.hash32x2 import hash32x2_pallas
 from repro.kernels.segment_reduce import run_ranks_sorted as j_run_ranks
 from repro.kernels.segment_reduce import segment_sum_sorted_pallas
 from repro.kernels.substr_find import exists_before_pallas, substr_find_pallas
 from repro_torch.core import strings as tstrings
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda, flash_attention_cuda_cores, flash_attention_sm90,
+)
+from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
 from repro_torch.kernels.segment_reduce import run_ranks_sorted, segment_sum_cuda
 from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
 from repro_torch.kernels.wkv6 import wkv6_cuda
@@ -53,6 +57,69 @@ def _random_strings(seed, n, L):
 
 def _t(a):
     return torch.as_tensor(np.array(a))  # a writable copy
+
+
+# ----------------------------------------------------------------------
+# hash32x2
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("n", [1, 7, 1024, 3000])
+@pytest.mark.parametrize("k", [1, 2, 5])
+def test_hash32x2_plain_matches_pallas_and_ref(n, k):
+    rng = np.random.default_rng(n * 31 + k)  # the inputs of tests/test_kernels.py
+    cols = rng.integers(0, 2**31, size=(n, k), dtype=np.int32)
+    got = hash32x2_plain(_t(cols)).numpy()
+    pallas = np.asarray(hash32x2_pallas(jnp.asarray(cols), block_rows=256))
+    want = np.asarray(jref.hash32x2(jnp.asarray(cols)))
+    assert got.dtype == np.uint32 and got.shape == (n, 2)
+    np.testing.assert_array_equal(got, pallas)  # bit for bit
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(ops.hash32x2(_t(cols)).numpy(), want)
+    np.testing.assert_array_equal(tref.hash32x2(_t(cols)).numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(0, 3), (6, 0), (0, 0)])
+def test_hash32x2_no_rows_or_no_columns_match_ref(shape):
+    # the Pallas kernel cannot take an empty block (no grid step, or a zero
+    # width); the reference's loop gives no rows, or the two seeds per row
+    cols = np.zeros(shape, np.int32)
+    got = hash32x2_plain(_t(cols)).numpy()
+    want = np.asarray(jref.hash32x2(jnp.asarray(cols)))
+    assert got.dtype == np.uint32 and got.shape == (shape[0], 2)
+    np.testing.assert_array_equal(got, want)
+    if shape[1] == 0:
+        np.testing.assert_array_equal(got, np.tile(np.array([0x9E3779B9, 0x7F4A7C15], np.uint32), (shape[0], 1)))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32])
+def test_hash32x2_high_bit_inputs_match_pallas_and_ref(dtype):
+    # negative int32 is read as its uint32 bits; uint32 at and above 2^31
+    rng = np.random.default_rng(41)
+    if dtype == np.int32:
+        cols = rng.integers(-(2**31), 0, size=(777, 3)).astype(np.int32)
+        cols[0] = [-1, -(2**31), -2]
+    else:
+        cols = rng.integers(2**31, 2**32, size=(777, 3)).astype(np.uint32)
+        cols[0] = [2**31, 2**32 - 1, 2**32 - 2]
+    got = ops.hash32x2(_t(cols)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(hash32x2_pallas(jnp.asarray(cols), block_rows=256)))
+    np.testing.assert_array_equal(got, np.asarray(jref.hash32x2(jnp.asarray(cols))))
+    # the same bits give the same hashes whichever the dtype
+    np.testing.assert_array_equal(got, hash32x2_plain(_t(cols.view(np.uint32 if dtype == np.int32 else np.int32))).numpy())
+
+
+def test_fmix32_matches_ref():
+    x = np.array([0, 1, 2**31 - 1, 2**31, 2**32 - 1, 0x9E3779B9], np.uint32)
+    got = tref.fmix32(torch.as_tensor(x.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jref.fmix32(jnp.asarray(x))).astype(np.int64))
+
+
+def test_hash32x2_distributes():
+    rng = np.random.default_rng(0)
+    cols = rng.integers(0, 1000, size=(20000, 2), dtype=np.int32)
+    h = ops.hash32x2(_t(cols)).numpy()
+    buckets = h[:, 0] % 16
+    counts = np.bincount(buckets, minlength=16)
+    assert counts.min() > 0.8 * counts.mean()  # roughly uniform
 
 
 # ----------------------------------------------------------------------
@@ -203,6 +270,8 @@ def test_ops_dispatch_raises_on_other_devices():
     lens = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.substr_find(packed, lens, torch.zeros(2, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.hash32x2(torch.zeros((4, 2), dtype=torch.int32, device="meta"))
 
 
 def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
@@ -218,8 +287,15 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda_cores(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_sm90(x.bfloat16(), x.bfloat16(), x.bfloat16())
+    with pytest.raises(ValueError, match="CUDA"):
         wkv6_cuda(x, x, x, x, torch.zeros((2, 16)))
-    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0, "wkv6": 0, "flash_attention": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        hash32x2_cuda(torch.zeros((3, 2), dtype=torch.int32))
+    assert ops.LAUNCHES == {name: 0 for name in (
+        "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2")}
 
 
 def test_plain_versions_launch_nothing_on_cpu():
@@ -227,4 +303,6 @@ def test_plain_versions_launch_nothing_on_cpu():
     ops.segment_sum(torch.ones(10, dtype=torch.int64), torch.arange(10) % 3, 3)
     buf, lens = _pack(["abc", "xabc"], 8)
     ops.exists_before(_t(buf), _t(lens), _t(np.frombuffer(b"a", np.uint8)), _t(np.frombuffer(b"c", np.uint8)))
-    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0, "wkv6": 0, "flash_attention": 0}
+    ops.hash32x2(torch.zeros((5, 2), dtype=torch.int32))
+    assert ops.LAUNCHES == {name: 0 for name in (
+        "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2")}

@@ -111,7 +111,8 @@ def test_cpu_main_path_launches_no_kernel(data):
     ops.reset_launches()
     for qname in ("q1", "q13", "q18"):
         QF.ALL[qname](frames, sf=SF, apply_limit=False)
-    assert ops.LAUNCHES == {"segment_sum": 0, "substr_find": 0, "wkv6": 0, "flash_attention": 0}
+    assert ops.LAUNCHES == {name: 0 for name in (
+        "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2")}
 
 
 def _jax_state(frame):
