@@ -9,15 +9,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. the card's name and power limit, then the build of every CUDA kernel
    from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. each kernel against its plain PyTorch version on the card, at edge
-   shapes (2a) and at the shapes the main paths give it (2b: TPC-H q1 and
-   q18 group sums, the q13 ``o_comment`` dictionary, the tuple hash of
-   lineitem's (l_orderkey, l_linenumber), Qwen3-14B's prefill attention
-   on the tensor-core kernel beside the CUDA-core one, RWKV6-7B's decode
-   recurrence), with times and bounds;
+   shapes (2a: the segment sum at the bounds of its three paths, with
+   runs, unaligned lengths and offset pointers; the WKV recurrence on
+   strided inputs with its state written in place) and at the shapes
+   the main paths give it (2b: TPC-H q1 and q18 group sums, the q13
+   ``o_comment`` dictionary, the tuple hash of lineitem's (l_orderkey,
+   l_linenumber), Qwen3-14B's prefill attention on the bf16 tensor-core
+   kernel and, on float32 copies, the CUDA-core kernel, RWKV6-7B's decode
+   recurrence and its prefill shape), with times and bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
-   must rise during that run; then a third pass under ``torch.profiler``
+   must rise during that run (the segment sum's first-pass launches are
+   printed by path); then a third pass under ``torch.profiler``
    for the device's busy share, and the three slowest warm queries once
    more under ``cProfile``;
 4. the card against the CPU plain path on all 22 queries at SF 0.01:
@@ -64,15 +68,20 @@ PEAK_BF16_OPS_PER_S = 989e12
 
 # Tolerances of kernel vs plain version on one call.  Float atomics add
 # in an order that changes from run to run: float64 agrees to rtol 1e-12,
-# float32 (24-bit mantissa, up to millions of terms) to rtol 1e-4.
+# float32 (24-bit mantissa, up to millions of terms) to rtol 1e-4, of the
+# largest result; for values of both signs (the edge shapes), of the
+# largest sum of |value| over a segment, the scale of a sum's rounding
+# in any order (a sum that cancels can be far smaller than its terms).
 RTOL = {"float64": 1e-12, "float32": 1e-4}
 QUERY_RTOL = 1e-8
 # Scale factor of the card-vs-CPU check (phase 4), and timed repetitions
 # of each kernel at each main-path shape (phase 2b).
 CHECK_SF = 0.01
 REPS = 20
-# Wall-time budget of the profiled pass (phase 3b).
+# Wall-time budget of the profiled pass (phase 3b), and profiler sessions
+# tried for one kernel's device time (phase 2b).
 PROFILE_BUDGET_S = 60.0
+PROFILE_TRIES = 3
 # K4 and K5 against their plain versions: (rtol = atol) per input dtype,
 # those of tests/test_kernels.py (f32 sums in another order; bf16 output
 # rounding), and timed repetitions at their main-path shapes.
@@ -124,14 +133,18 @@ def device_ms(torch, fn, kernel_key: str, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [(ms, n) for key, (ms, n) in device_busy(prof)[1].items() if kernel_key in key]
-    if not hits:
-        raise AssertionError(f"the profiler saw no {kernel_key} kernel")
-    return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+    # A profiler session now and then records no device events at all;
+    # the measurement is taken again, up to PROFILE_TRIES sessions.
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [(ms, n) for key, (ms, n) in device_busy(prof)[1].items() if kernel_key in key]
+        if hits:
+            return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
+        log(f"  profiler session {attempt} of {PROFILE_TRIES} saw no {kernel_key} kernel")
+    raise AssertionError(f"the profiler saw no {kernel_key} kernel in {PROFILE_TRIES} sessions")
 
 
 def bound_ms(nbytes: float, nops: float, peak_ops: float = PEAK_OPS_PER_S):
@@ -149,7 +162,8 @@ def max_abs_err(torch, got, want) -> float:
 # ----------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
-def check_segment_sum(torch, seg, values, ids, m, label):
+def check_segment_sum(torch, seg, values, ids, m, label, quiet: bool = False,
+                      signed: bool = False):
     got = seg.segment_sum_cuda(values, ids, m)
     want = seg.segment_sum_plain(values, ids, m)
     torch.cuda.synchronize()
@@ -159,14 +173,27 @@ def check_segment_sum(torch, seg, values, ids, m, label):
         tol = "exact"
     else:
         rtol = RTOL[str(values.dtype).replace("torch.", "")]
-        scale = float(want.abs().max()) if want.numel() else 0.0
+        terms = seg.segment_sum_plain(values.abs(), ids, m) if signed else want
+        scale = float(terms.abs().max()) if want.numel() else 0.0
         ok = err <= rtol * max(scale, 1.0)
-        tol = f"rtol {rtol}"
-    log(f"  segment_sum {label}: n={values.numel()} m={m} {values.dtype} "
-        f"max_abs_err={err!r} ({tol}) {'ok' if ok else 'MISMATCH'}")
+        tol = f"rtol {rtol} of {'sum |value|' if signed else 'the result'}"
+    if not quiet or not ok:
+        log(f"  segment_sum {label}: n={values.numel()} m={m} {values.dtype} "
+            f"path {seg.segment_path(m)} max_abs_err={err!r} ({tol}) "
+            f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"segment_sum kernel disagrees with its plain version at {label}")
     return err
+
+
+def segment_ids(rng, n: int, m: int, order: str) -> np.ndarray:
+    """n ids for m segments, -1 and m among them (both dropped): at random,
+    sorted, or in runs of 1 to 7 equal ids (as lineitem's order keys)."""
+    if order == "runs":
+        starts = np.sort(rng.integers(-1, m + 1, n // 2 + 2))  # 2n ids on average
+        return np.repeat(starts, rng.integers(1, 8, starts.size))[:n]
+    ids = rng.integers(-1, m + 1, n)
+    return np.sort(ids) if order == "sorted" else ids
 
 
 def check_substr_find(torch, sf, packed, lens, pat, start, label):
@@ -182,21 +209,38 @@ def check_substr_find(torch, sf, packed, lens, pat, start, label):
 
 
 def edge_phase(torch, seg, sf, dev) -> None:
-    log("phase 2a: edge shapes")
+    log("phase 2a: edge shapes (segment_sum: each (dtype, m) over lengths, id orders "
+        "and offsets of the two pointers)")
     rng = np.random.default_rng(7)
     for dtype in (torch.float32, torch.float64, torch.int64):
-        for n, m in [(1, 1), (1000, 7), (3 * 4096 + 5, 4096), (3 * 4096 + 5, 4097), (50_000, 100_000)]:
-            for order in ("sorted", "unsorted"):
-                ids = rng.integers(-1, m + 1, n)  # -1 and m are dropped
-                if order == "sorted":
-                    ids = np.sort(ids)
-                if dtype == torch.int64:
-                    vals = rng.integers(-(1 << 40), 1 << 40, n)
-                else:
-                    vals = rng.normal(size=n) * 1e3
-                v = torch.as_tensor(vals, device=dev).to(dtype)
-                g = torch.as_tensor(ids, dtype=torch.int64, device=dev)
-                check_segment_sum(torch, seg, v, g, m, f"edge {order}")
+        # the bounds of the few (<= 16), mid (<= 4096) and many paths
+        for m in (1, 2, 6, 15, 16, 17, 4096, 4097, 1_500_000):
+            lengths = [1, 2, 31, 33, 1001, 3 * 4096 + 5, 200_003]
+            if m == 1_500_000:
+                lengths.append(3_000_001)
+            worst, cases = 0.0, 0
+            for n in lengths:
+                for order in ("unsorted", "sorted", "runs"):
+                    ids = segment_ids(rng, n + 1, m, order)
+                    n_ids = ids.size
+                    if dtype == torch.int64:
+                        vals = rng.integers(-(1 << 40), 1 << 40, n_ids)
+                    else:
+                        vals = rng.normal(size=n_ids) * 1e3
+                    v = torch.as_tensor(vals, device=dev).to(dtype)
+                    g = torch.as_tensor(ids, dtype=torch.int64, device=dev)
+                    # aligned, both pointers one row on, only the values one row on
+                    for vs, gs in ((slice(0, n_ids - 1), slice(0, n_ids - 1)),
+                                   (slice(1, None), slice(1, None)),
+                                   (slice(1, None), slice(0, n_ids - 1))):
+                        if v[vs].numel() == 0:
+                            continue
+                        err = check_segment_sum(torch, seg, v[vs], g[gs], m,
+                                                f"edge n={n} {order}", quiet=True,
+                                                signed=True)
+                        worst, cases = max(worst, err), cases + 1
+            log(f"  segment_sum {dtype} m={m} path {seg.segment_path(m)}: {cases} cases, "
+                f"max_abs_err={worst!r} ok")
     empty = seg.segment_sum_cuda(
         torch.zeros(0, dtype=torch.float64, device=dev), torch.zeros(0, dtype=torch.int64, device=dev), 5
     )
@@ -391,15 +435,53 @@ def check_wkv6(torch, args, label: str) -> float:
     return max(err_y, err_s)
 
 
-def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool):
+def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool, strided: bool = False):
+    """r, k, v, w (B, H, T, D), u, and a float32 state or None; with
+    ``strided`` r/k/v/w are (B, H, T, D) views of (B, T, H, D) tensors, as
+    the model hands them over."""
     def normal(*shape, scale=1.0):
         return torch.as_tensor(rng.normal(size=shape) * scale, device=dev)
 
-    r, k, v = (normal(B, H, T, D, scale=0.5).to(dtype) for _ in range(3))
-    w = torch.as_tensor(rng.uniform(0.7, 0.999, (B, H, T, D)), device=dev).to(dtype)
+    def heads(x):
+        return x.transpose(1, 2) if strided else x
+
+    shape = (B, T, H, D) if strided else (B, H, T, D)
+    r, k, v = (heads(normal(*shape, scale=0.5).to(dtype)) for _ in range(3))
+    w = heads(torch.as_tensor(rng.uniform(0.7, 0.999, shape), device=dev).to(dtype))
     u = normal(H, D, scale=0.1).to(dtype)
     s0 = normal(B, H, D, D).float() if with_state else None
     return [r, k, v, w, u, s0]
+
+
+def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D) -> float:
+    """K5 on strided inputs with ``state_out``: aliased to the state (the
+    decode step's form) and a separate buffer, against the plain version
+    on the same inputs; the state passed without ``state_out`` is left
+    as it was."""
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+
+    r, k, v, w, u, s0 = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, True, strided=True)
+    tol = WKV6_TOL[str(dtype).replace("torch.", "")]
+    y_want, s_want = wkv6_plain(r, k, v, w, u, s0)
+    kept = s0.clone()
+    y_pure, s_pure = wkv6_cuda(r, k, v, w, u, s0)
+    alias = s0.clone()
+    y_alias, s_alias = wkv6_cuda(r, k, v, w, u, alias, state_out=alias)
+    other = torch.full_like(s0, float("nan"))
+    _, s_other = wkv6_cuda(r, k, v, w, u, s0, state_out=other)
+    torch.cuda.synchronize()
+    errs, ok = [], torch.equal(s0, kept) and s_alias is alias and s_other is other
+    for got, want in ((y_pure, y_want), (s_pure, s_want), (y_alias, y_want),
+                      (s_alias, s_want), (s_other, s_want)):
+        err, fine = allclose_err(torch, got, want, tol)
+        errs.append(err)
+        ok = ok and fine
+    log(f"  wkv6 strided, state_out aliased and apart: r {tuple(r.shape)} strides "
+        f"{r.stride()} {dtype} max_abs_err={max(errs)!r} (tol {tol}) "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError("wkv6 kernel with strided inputs or state_out disagrees")
+    return max(errs)
 
 
 def lm_edge_phase(torch, dev) -> None:
@@ -429,6 +511,11 @@ def lm_edge_phase(torch, dev) -> None:
             for with_state in (False, True):
                 args = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state)
                 check_wkv6(torch, args, "edge")
+        # the model's form: strided (B, H, T, D) views of (B, T, H, D), the
+        # final state written over the initial one, and into another buffer
+        for B, H, T, D in [(1, 2, 1, 16), (4, 64, 1, 64), (3, 5, 7, 64), (2, 4, 64, 64),
+                           (1, 2, 7, 128)]:
+            check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D)
         # state chaining: two calls through the carried state equal one
         r, k, v, w, u, _ = wkv6_inputs(torch, rng, dev, dtype, 2, 4, 64, 64, False)
         y, s = wkv6_cuda(r, k, v, w, u)
@@ -477,45 +564,70 @@ def lm_main_shape_phase(torch, dev) -> dict:
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
     nops = 4 * D * attention_pairs(S, S, True) * Hq * B
     b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
-    # the plain version and scaled_dot_product_attention, timed once for both kernels
+    # the tensor-core kernel, the model's bf16 path, with the plain version
+    # and scaled_dot_product_attention on the same bf16 inputs
     p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), LM_REPS)
     l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
-    # the tensor-core kernel (the model's bf16 path), then the CUDA-core
-    # kernel on the same bf16 inputs, its time before this kernel existed
-    for name, fn, key, cores in (
-        ("flash_attention_sm90", flash_attention_sm90, "flash_attention_sm90_kernel", False),
-        ("flash_attention", flash_attention_cuda_cores, "flash_attention_kernel", True),
-    ):
-        err = check_attention(torch, q, k, v, True, label, cuda_cores=cores)
-        reps = LM_REPS * (5 if name == "flash_attention_sm90" else 1)
-        k_ms = cuda_ms(torch, lambda: fn(q, k, v, True), reps)
-        d_ms = device_ms(torch, lambda: fn(q, k, v, True), key, reps)
-        where = "" if name == "flash_attention_sm90" else (
-            "; the CUDA-core kernel, whose model path is float32 (phase 7)")
-        row = dict(label=label + where, kernel=name, max_abs_err=err, ms=k_ms, device_ms=d_ms,
-                   plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes, ops=nops)
-        log("   ", json.dumps(row))
-        out[name] = [row]
+    err = check_attention(torch, q, k, v, True, label)
+    k_ms = cuda_ms(torch, lambda: flash_attention_sm90(q, k, v, True), LM_REPS * 5)
+    d_ms = device_ms(torch, lambda: flash_attention_sm90(q, k, v, True),
+                     "flash_attention_sm90_kernel", LM_REPS * 5)
+    row = dict(label=label, kernel="flash_attention_sm90", max_abs_err=err, ms=k_ms,
+               device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    out["flash_attention_sm90"] = [row]
+    # the CUDA-core kernel, whose model path is float32 (phase 7): float32
+    # copies of the same inputs, its bound at the float32 rate, and
+    # scaled_dot_product_attention on the same float32 inputs
+    q, qd, k, v = (t.float() for t in (q, qd, k, v))  # q keeps the model's strides
+    label = label.replace("bf16", "float32")
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    b_ms, b_by = bound_ms(nbytes, nops, PEAK_OPS_PER_S)
+    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), 2)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
+    err = check_attention(torch, q, k, v, True, label, cuda_cores=True)
+    k_ms = cuda_ms(torch, lambda: flash_attention_cuda_cores(q, k, v, True), LM_REPS)
+    d_ms = device_ms(torch, lambda: flash_attention_cuda_cores(q, k, v, True),
+                     "flash_attention_kernel", LM_REPS)
+    row = dict(label=label, kernel="flash_attention", max_abs_err=err, ms=k_ms,
+               device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    out["flash_attention"] = [row]
     del q, qd, k, v
 
+    # K5 as the model calls it: strided views of (B, T, H, D), bf16 u (its
+    # float32 copy cached), the state written over itself; at RWKV6-7B's
+    # decode shape (the main path), then its prefill shape (which serving
+    # does not take: it feeds prompts through the decode step)
     rc = get("rwkv6-7b")
-    B, H, T, D = SLOTS, rc.n_heads, 1, rc.d_model // rc.n_heads
-    args = wkv6_inputs(torch, rng, dev, torch.bfloat16, B, H, T, D, True)
-    label = f"rwkv6-7b decode: B={B} H={H} T={T} D={D} bf16, state f32"
-    err = check_wkv6(torch, args, label)
-    k_ms = cuda_ms(torch, lambda: wkv6_cuda(*args), LM_REPS * 10)
-    d_ms = device_ms(torch, lambda: wkv6_cuda(*args), "wkv6_kernel", LM_REPS * 10)
-    p_ms = cuda_ms(torch, lambda: wkv6_plain(*args), LM_REPS * 10)
-    nbytes = (5 * B * H * T * D * 2 + H * D * 2  # r, k, v, w read, y written; u
-              + 2 * B * H * D * D * 4)  # state read and written
-    nops = 7 * B * H * T * D * D
-    b_ms, b_by = bound_ms(nbytes, nops)
-    row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
-    log("   ", json.dumps(row))
-    out["wkv6"] = [row]
+    rows = []
+    for B, T, reps, what in ((SLOTS, 1, LM_REPS * 10, "decode"),
+                             (1, PREFILL_LEN, LM_REPS, "prefill")):
+        H, D = rc.n_heads, rc.d_model // rc.n_heads
+        args = wkv6_inputs(torch, rng, dev, torch.bfloat16, B, H, T, D, True, strided=True)
+        label = (f"rwkv6-7b {what}: B={B} H={H} T={T} D={D} bf16, strided, "
+                 f"state f32 written in place")
+        err = check_wkv6(torch, args, label)
+        r, k, v, w, u, s0 = args
+        state = s0.clone()
+        step = lambda: wkv6_cuda(r, k, v, w, u, state, state_out=state)
+        k_ms = cuda_ms(torch, step, reps)
+        d_ms = device_ms(torch, step, "wkv6_kernel", reps)
+        p_ms = cuda_ms(torch, lambda: wkv6_plain(*args), reps if T == 1 else 1)
+        nbytes = (5 * B * H * T * D * 2 + H * D * 2  # r, k, v, w read, y written; u
+                  + 2 * B * H * D * D * 4)  # state read and written
+        nops = 7 * B * H * T * D * D
+        b_ms, b_by = bound_ms(nbytes, nops)
+        row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+        log("   ", json.dumps(row))
+        rows.append(row)
+        del args, r, k, v, w, state
+    out["wkv6"] = rows
     return out
 
 
@@ -894,6 +1006,8 @@ def main() -> int:
     ops.reset_launches()
     res1, ms1 = run_queries(torch, QF, frames, args.sf)
     pass1 = dict(ops.LAUNCHES)
+    log(f"  segment_sum launches of pass 1 by path (m <= {seg.FEW_SLOTS}, "
+        f"<= {seg.SMEM_SLOTS}, above): {json.dumps(ops.PATH_LAUNCHES)}")
     res2, ms2 = run_queries(torch, QF, frames, args.sf)
     launches = dict(ops.LAUNCHES)
     log(f"  launches after pass 1: {pass1}; after both passes: {launches}")
@@ -951,8 +1065,9 @@ def main() -> int:
         "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
     }
     kernels = []
+    timed = ("label", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, rows in shapes.items():
-        row = rows[0]  # the largest main-path shape of each kernel
+        row = rows[0]  # the main-path shape of each kernel (K1: q18's)
         src, replaces = sources[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -960,6 +1075,8 @@ def main() -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
+            # K1's q1 shapes, K5's prefill shape (0 launches on the serving path)
+            "other_shapes": [{key: r[key] for key in timed} for r in rows[1:]],
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]
     if idle:

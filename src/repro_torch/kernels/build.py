@@ -36,9 +36,9 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signature of each kernel source's entry point: (symbol, argtypes).
 SIGNATURES = {
-    "segment_sum": ("repro_segment_sum", [_I, _P, _P, _L, _L, _P, _P]),
+    "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P]),
     "substr_find": ("repro_substr_find", [_P, _P, _P, _I, _P, _L, _I, _P, _P]),
-    "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
     "flash_attention": (
         "repro_flash_attention",
         [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],

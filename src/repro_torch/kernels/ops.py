@@ -11,12 +11,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from .build import LAUNCHES, reset_launches  # noqa: F401  (re-exported)
+from . import build
+from .build import LAUNCHES  # noqa: F401  (re-exported)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .hash32x2 import hash32x2_cuda, hash32x2_plain
-from .segment_reduce import segment_sum_cuda, segment_sum_plain
+from .segment_reduce import PATH_LAUNCHES, segment_sum_cuda, segment_sum_plain
 from .substr_find import substr_find_cuda, substr_find_plain
 from .wkv6 import wkv6_cuda, wkv6_plain
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count, and the segment sum's by path."""
+    build.reset_launches()
+    for name in PATH_LAUNCHES:
+        PATH_LAUNCHES[name] = 0
 
 
 def _route(t: torch.Tensor, fn: str) -> str:
@@ -77,8 +85,14 @@ def wkv6(
     w: torch.Tensor,
     u: torch.Tensor,
     state: Optional[torch.Tensor] = None,
+    *,
+    state_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The RWKV6 recurrence over (B, H, T, D) inputs, state carried (K5)."""
+    """The RWKV6 recurrence over (B, H, T, D) inputs of any strides (stride
+    1 on D for the kernel), state carried (K5).  y comes back as the
+    (B, H, T, D) view of a (B, T, H, D) tensor.  ``state_out``, where
+    given, receives the final state and is returned; it may be ``state``
+    itself.  Without it ``state`` is left as it was."""
     if _route(r, "wkv6") == "cuda":
-        return wkv6_cuda(r, k, v, w, u, state)
-    return wkv6_plain(r, k, v, w, u, state)
+        return wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
+    return wkv6_plain(r, k, v, w, u, state, state_out=state_out)

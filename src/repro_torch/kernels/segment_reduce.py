@@ -5,8 +5,17 @@
 ``segment_sum_sorted_pallas``; ``segment_sum_plain`` is the plain
 PyTorch version of the same function.  ``kernels.ops.segment_sum``
 picks between them by the tensor's device.
+
+The kernel has three paths by the number of segments m (see the
+source's note): ``few`` (m <= ``FEW_SLOTS``, register accumulators),
+``mid`` (m <= ``SMEM_SLOTS``, shared-memory partials) and ``many``
+(global atomics after runs of equal ids are summed).  ``PATH_LAUNCHES``
+counts the launches of each, beside the kernel's count in
+``build.LAUNCHES``.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
@@ -14,6 +23,19 @@ from . import build
 
 #: value dtypes the kernel takes, with the C interface's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
+#: the kernel's paths, with the C interface's path code, and their limits
+PATHS = {"few": 0, "mid": 1, "many": 2}
+FEW_SLOTS = 16
+SMEM_SLOTS = 4096
+#: launches of the kernel by path; zeroed with the launch counts
+PATH_LAUNCHES: Dict[str, int] = {name: 0 for name in PATHS}
+
+
+def segment_path(num_segments: int) -> str:
+    """The kernel path that sums into ``num_segments`` segments."""
+    if num_segments <= FEW_SLOTS:
+        return "few"
+    return "mid" if num_segments <= SMEM_SLOTS else "many"
 
 
 def segment_sum_plain(
@@ -56,13 +78,15 @@ def segment_sum_cuda(
     if n == 0 or num_segments == 0:
         return out
     fn = build.kernel("segment_sum")
+    path = segment_path(num_segments)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(
-            _DTYPE_CODES[values.dtype], values.data_ptr(), seg_ids.data_ptr(),
+            _DTYPE_CODES[values.dtype], PATHS[path], values.data_ptr(), seg_ids.data_ptr(),
             n, int(num_segments), out.data_ptr(), stream,
         )
         build.LAUNCHES["segment_sum"] += 1
+        PATH_LAUNCHES[path] += 1
     build.check("segment_sum", err)
     return out
 

@@ -231,12 +231,14 @@ def decode_step(
     pos = int(state["pos"])
     if cfg.family == "rwkv6":
         for i, bp in enumerate(params["blocks"]):
+            S_i = state["S"][i]  # the WKV kernel writes the new state over it
             x, ns = rwkv.rwkv_block(
                 bp, cfg, x,
-                state={"S": state["S"][i], "tm_prev": state["tm_prev"][i],
+                state={"S": S_i, "tm_prev": state["tm_prev"][i],
                        "cm_prev": state["cm_prev"][i]},
+                S_out=S_i,
             )
-            for name in ("S", "tm_prev", "cm_prev"):
+            for name in ("tm_prev", "cm_prev"):
                 state[name][i].copy_(ns[name])
     else:
         kv_start = batch.get("kv_start")

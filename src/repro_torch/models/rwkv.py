@@ -71,10 +71,13 @@ def rwkv_block(
     cfg: ModelConfig,
     x: torch.Tensor,
     state: Optional[Dict] = None,
+    S_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Full RWKV6 block (time-mix + channel-mix).  state carries
     {'S': (B,H,hd,hd) f32, 'tm_prev': (B,1,D), 'cm_prev': (B,1,D)} for
-    segment-chained prefill and O(1) decode."""
+    segment-chained prefill and O(1) decode.  ``S_out``, where given,
+    receives the new WKV state (it may be ``state['S']``, updated in
+    place) and is the returned state's 'S'."""
     B, S, D = x.shape
     H = cfg.n_heads
     hd = D // H
@@ -101,13 +104,14 @@ def rwkv_block(
     )
     w = torch.exp(-torch.exp(p["w0"].to(torch.float32) + wl.to(torch.float32)))
 
-    def heads(t):  # (B,S,D) -> (B,H,S,hd), contiguous for the kernel
-        return t.reshape(B, S, H, hd).transpose(1, 2).contiguous()
+    def heads(t):  # (B,S,D) -> (B,H,S,hd), a view: the kernel takes strides
+        return t.reshape(B, S, H, hd).transpose(1, 2)
 
-    y, S_out = ops.wkv6(
-        heads(r), heads(k), heads(v), heads(w.to(dt)), p["u"], state=st.get("S")
+    y, S_new = ops.wkv6(
+        heads(r), heads(k), heads(v), heads(w.to(dt)), p["u"], state=st.get("S"),
+        state_out=S_out,
     )
-    y = y.transpose(1, 2).reshape(B, S, D)
+    y = y.transpose(1, 2).reshape(B, S, D)  # a view of the kernel's (B, S, H, hd)
     y = y * F.silu(g)
     y = torch.einsum("bsd,de->bse", y.to(dt), p["wo"].to(dt))
     x = x + y
@@ -126,7 +130,7 @@ def rwkv_block(
     x = x + rr * vv
 
     new_state = {
-        "S": S_out,
+        "S": S_new,
         "tm_prev": xn[:, -1:, :],
         "cm_prev": xn2[:, -1:, :],
     }

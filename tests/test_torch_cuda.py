@@ -53,6 +53,49 @@ def test_segment_sum_kernel_matches_plain(cuda_device, dtype, n, m):
         torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
 
 
+def _segment_case(rng, n, m, order, dtype, device):
+    """n + 1 ids for m segments (-1 and m among them: dropped) at random or
+    in runs of 1 to 7 equal ids, and values of ``dtype``."""
+    if order == "runs":
+        starts = np.sort(rng.integers(-1, m + 1, (n + 1) // 2 + 2))  # 2n ids on average
+        ids = np.repeat(starts, rng.integers(1, 8, starts.size))[:n + 1]
+    else:
+        ids = rng.integers(-1, m + 1, n + 1)
+    if dtype == torch.int64:
+        vals = rng.integers(-(1 << 40), 1 << 40, ids.size)
+    else:
+        vals = rng.normal(size=ids.size) * 100
+    return (torch.as_tensor(vals, device=device).to(dtype),
+            torch.as_tensor(ids, dtype=torch.int64, device=device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int64])
+@pytest.mark.parametrize("m", [1, 2, 6, 15, 16, 17, 4096, 4097, 1_500_000])
+@pytest.mark.parametrize("order", ["random", "runs"])
+def test_segment_sum_paths_match_plain(cuda_device, dtype, m, order):
+    """Each of the kernel's paths (few <= 16 < mid <= 4096 < many) at its
+    bounds: odd lengths and lengths below a warp, runs of equal ids, ids
+    out of range, and pointers one row off 16-byte alignment (both, or
+    only the values: one row a thread)."""
+    rng = np.random.default_rng(m)
+    for n in (1, 2, 17, 31, 1001, 65_537, 3_000_001 if m == 1_500_000 else 200_003):
+        vals, ids = _segment_case(rng, n, m, order, dtype, cuda_device)
+        assert ids.numel() == n + 1
+        for vs, gs in ((slice(0, n), slice(0, n)), (slice(1, None), slice(1, None)),
+                       (slice(1, None), slice(0, n))):
+            v, g = vals[vs], ids[gs]
+            got = segment_sum_cuda(v, g, m)
+            want = segment_sum_plain(v, g, m)
+            if dtype == torch.int64:
+                assert torch.equal(got, want), (n, vs, gs)
+            else:
+                # values of both signs: a sum's rounding in any order scales
+                # with the sum of |value| over its segment, not with the sum
+                rtol = 1e-12 if dtype == torch.float64 else 1e-4
+                terms = float(segment_sum_plain(v.abs(), g, m).max())
+                torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * max(terms, 1.0))
+
+
 @pytest.mark.parametrize("pat", ["", "a", "special", "x" * 130])
 def test_substr_find_kernel_matches_plain(cuda_device, pat):
     rng = np.random.default_rng(9)
@@ -120,6 +163,38 @@ def test_wkv6_kernel_matches_plain_and_chains_state(cuda_device, dtype, B, H, T,
         y, s = wkv6_cuda(r, k, v, w, u)
         torch.testing.assert_close(torch.cat([y1, y2], 2).float(), y.float(), rtol=tol, atol=tol)
         torch.testing.assert_close(s2, s, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 7, 64])
+def test_wkv6_kernel_strided_with_state_written_in_place(cuda_device, dtype, T):
+    """K5 as the decode step calls it: (B, H, T, D) views of (B, T, H, D)
+    tensors, bf16 or f32 u, the final state written over the initial one
+    (and into a separate buffer), against the plain version."""
+    B, H, D = 4, 8, 64
+    rng = np.random.default_rng(T)
+    heads = lambda a: torch.as_tensor(a, device=cuda_device).to(dtype).transpose(1, 2)
+    r, k, v = (heads(rng.normal(size=(B, T, H, D)) * 0.5) for _ in range(3))
+    w = heads(rng.uniform(0.7, 0.999, (B, T, H, D)))
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).to(dtype)
+    s0 = torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+    tol = KERNEL_TOL[dtype][0]
+    y_want, s_want = wkv6_plain(r, k, v, w, u, s0)
+    state = s0.clone()
+    y, s = wkv6_cuda(r, k, v, w, u, state, state_out=state)
+    assert s is state and y.shape == (B, H, T, D) and y.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+    other = torch.full_like(s0, float("nan"))
+    y, s = wkv6_cuda(r, k, v, w, u, s0, state_out=other)
+    assert s is other
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+    kept = s0.clone()
+    wkv6_cuda(r, k, v, w, u, s0)
+    assert torch.equal(s0, kept)  # without state_out the state is left as it was
+    buf = torch.zeros(s0.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="overlaps"):  # one float apart
+        wkv6_cuda(r, k, v, w, u, buf[:-1].view_as(s0), state_out=buf[1:].view_as(s0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -25,7 +25,10 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda, flash_attention_cuda_cores, flash_attention_sm90,
 )
 from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
-from repro_torch.kernels.segment_reduce import run_ranks_sorted, segment_sum_cuda
+from repro_torch.kernels import wkv6 as twkv6
+from repro_torch.kernels.segment_reduce import (
+    run_ranks_sorted, segment_path, segment_sum_cuda,
+)
 from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
@@ -249,6 +252,38 @@ def test_segment_sum_matches_jax_segment_sum(dtype, order):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("m,path", [
+    (1, "few"), (6, "few"), (16, "few"), (17, "mid"), (4096, "mid"), (4097, "many"),
+    (1_500_000, "many"),
+])
+def test_segment_sum_path_by_number_of_segments(m, path):
+    assert segment_path(m) == path
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "float32"])
+@pytest.mark.parametrize("m", [1, 2, 6, 15, 16, 17, 4096, 4097])
+def test_segment_sum_at_the_path_bounds_matches_jax(dtype, m):
+    """The kernel's path bounds, runs of 1 to 7 equal ids (as lineitem's
+    order keys), ids out of range, and an odd length (n = 1001): the
+    plain version against ``jax.ops.segment_sum``."""
+    rng = np.random.default_rng(m)
+    starts = np.sort(rng.integers(-2, m + 2, 400))
+    ids = np.repeat(starts, rng.integers(1, 8, starts.size))[:1001]
+    if dtype == "int64":
+        vals = rng.integers(-(1 << 50), 1 << 50, ids.size)
+    else:
+        vals = (rng.normal(size=ids.size) * 1e4).astype(dtype)
+    got = ops.segment_sum(_t(vals), _t(ids), m).numpy()
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids), m))
+    assert got.dtype == np.dtype(dtype) and got.shape == (m,)
+    if dtype == "int64":
+        np.testing.assert_array_equal(got, want)  # exact
+    elif dtype == "float64":
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
 def test_run_ranks_sorted_matches_jax():
     rng = np.random.default_rng(2)
     ids = np.sort(rng.integers(0, 50, 1000))
@@ -296,6 +331,52 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
         hash32x2_cuda(torch.zeros((3, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
         "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2")}
+
+
+def test_wkv6_signature_cache_checks_each_new_signature_in_full():
+    """A signature (shapes, dtypes, strides, devices, optional tensors)
+    is checked once and its launch arguments kept; a call that differs
+    from a cached one in any of them is checked anew and refused."""
+    B, H, T, D = 2, 3, 1, 16
+    heads = lambda dtype=torch.bfloat16: torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
+    r, k, v, w = heads(), heads(), heads(), heads()
+    u = torch.zeros((H, D), dtype=torch.bfloat16)
+    S = torch.zeros((B, H, D, D))
+    plan = twkv6.wkv6_launch_plan(r, k, v, w, u, S, S)
+    assert twkv6.wkv6_launch_plan(r, k, v, w, u, S, S) is plan
+    S2 = S.clone()
+    assert twkv6.wkv6_launch_plan(heads(), heads(), heads(), heads(), u.clone(), S2,
+                                  S2) is plan  # same signature, other tensors
+    apart = twkv6.wkv6_launch_plan(r, k, v, w, u, S, S.clone())  # state_out not the state
+    assert apart is not plan and list(apart.dims) == list(plan.dims)
+    assert list(plan.dims) == [B, H, T, D] + list(r.stride()[:3]) * 4
+    assert (plan.dtype, plan.cast_state, plan.empty) == (1, False, False)
+    with pytest.raises(ValueError, match="shape"):
+        twkv6.wkv6_launch_plan(r, k[:, :2], v, w, u, S, S)
+    with pytest.raises(ValueError, match="shape"):
+        twkv6.wkv6_launch_plan(r, k, v, w, u, S, S[:1])
+    with pytest.raises(TypeError, match="is torch.float32"):
+        twkv6.wkv6_launch_plan(r, heads(torch.float32), v, w, u, S, S)
+    with pytest.raises(ValueError, match="stride 1 on D"):
+        twkv6.wkv6_launch_plan(r, k, torch.zeros((B, H, T, 2 * D), dtype=r.dtype)[..., ::2],
+                               w, u, S, S)
+    with pytest.raises(ValueError, match="on meta"):
+        twkv6.wkv6_launch_plan(r, k, v, w, u.to("meta"), S, S)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        twkv6.wkv6_launch_plan(r, k, v, w, u, S, S.transpose(2, 3))
+    # a state of another dtype is passed as a float32 copy
+    assert twkv6.wkv6_launch_plan(r, k, v, w, u, S.double()).cast_state
+
+
+def test_wkv6_float32_u_is_cast_once_and_again_after_an_update():
+    u = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 16))).to(torch.bfloat16)
+    a = twkv6._u_f32(u)
+    assert a.dtype == torch.float32 and twkv6._u_f32(u) is a
+    u.add_(1.0)  # an in-place update bumps the version counter
+    b = twkv6._u_f32(u)
+    assert b is not a and torch.equal(b, u.float())
+    f = torch.zeros((3, 16))
+    assert twkv6._u_f32(f) is f  # already float32 and contiguous: no copy
 
 
 def test_plain_versions_launch_nothing_on_cpu():

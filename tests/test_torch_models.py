@@ -32,6 +32,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.wkv6 import wkv6_pallas
 from repro.models import lm as jlm
 from repro.models.config import reduced as jreduced
+from repro.models.rwkv import wkv6_chunked
 from repro_torch.configs import get as tget
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -105,6 +106,61 @@ def test_wkv6_plain_chains_state_and_takes_single_steps():
         ys.append(y_t)
     torch.testing.assert_close(torch.cat(ys, dim=2), y_full, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s, s_full, rtol=1e-4, atol=1e-4)
+
+
+def _heads_view(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A (B, H, T, D) array as the model hands it to the kernel: the
+    (B, H, T, D) view of a (B, T, H, D) tensor."""
+    t = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3)))
+    return t.to(getattr(torch, dtype)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 7, 64])
+def test_wkv6_plain_strided_in_place_matches_reference_and_chunked(dtype, T):
+    """Strided (B, H, T, D) views and the state written over itself, as
+    the decode step calls K5, against ``ref.wkv6_reference`` (the kernel
+    tolerance) and the JAX package's chunked form ``wkv6_chunked`` (its
+    own tolerance against the reference, 2e-3, or the bf16 one)."""
+    B, H, D = 2, 3, 16
+    arrs = _wkv6_inputs(T, B, H, T, D)
+    s0 = np.random.default_rng(T + 1).normal(size=(B, H, D, D)).astype(np.float32)
+    r, k, v, w = (_heads_view(a, dtype) for a in arrs[:4])
+    u = torch.from_numpy(arrs[4]).to(getattr(torch, dtype))
+    if T > 1:
+        assert not r.is_contiguous() and r.stride(3) == 1
+    state = torch.from_numpy(s0.copy())  # a clone: the call writes over it
+    y, s = wkv6_plain(r, k, v, w, u, state, state_out=state)
+    assert s is state and s.dtype == torch.float32
+    assert y.shape == (B, H, T, D) and y.transpose(1, 2).is_contiguous()
+    j = [_both(a, dtype)[0] for a in arrs]
+    tol = KERNEL_TOL[dtype][0]
+    y_ref, s_ref = jref.wkv6_reference(*j, state=jnp.asarray(s0))
+    np.testing.assert_allclose(_np(y), np.asarray(y_ref, np.float32), rtol=tol, atol=tol)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=tol, atol=tol)
+    y_c, s_c = wkv6_chunked(*j, state=jnp.asarray(s0), chunk=min(T, 16))
+    tol_c = max(2e-3, tol)
+    np.testing.assert_allclose(_np(y), np.asarray(y_c, np.float32), rtol=tol_c, atol=tol_c)
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_c), rtol=tol_c, atol=tol_c)
+
+
+def test_wkv6_without_state_out_leaves_the_state_and_returns_a_new_one():
+    arrs = _wkv6_inputs(4, 2, 3, 5, 16)
+    r, k, v, w = (_heads_view(a, "float32") for a in arrs[:4])
+    u = torch.from_numpy(arrs[4])
+    s0 = torch.from_numpy(np.random.default_rng(5).normal(size=(2, 3, 16, 16)).astype(np.float32))
+    kept = s0.clone()
+    for T in (5, 0):  # no steps: the state comes back unchanged, still a new tensor
+        y, s = ops.wkv6(r[:, :, :T], k[:, :, :T], v[:, :, :T], w[:, :, :T], u, s0)
+        assert s is not s0 and s.data_ptr() != s0.data_ptr()
+        assert torch.equal(s0, kept)
+    torch.testing.assert_close(s, kept)
+    out = torch.full_like(s0, float("nan"))
+    y2, s2 = ops.wkv6(r, k, v, w, u, s0, state_out=out)
+    y1, s1 = ops.wkv6(r, k, v, w, u, s0)
+    assert s2 is out and torch.equal(s0, kept)
+    torch.testing.assert_close(s2, s1)
+    torch.testing.assert_close(y2, y1)
 
 
 # ----------------------------------------------------------------------
