@@ -10,18 +10,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. each kernel against its plain PyTorch version on the card, at edge
    shapes (2a: the segment sum at the bounds of its three paths, with
-   runs, unaligned lengths and offset pointers; the WKV recurrence on
-   strided inputs with its state written in place) and at the shapes
+   runs, unaligned lengths and offset pointers; the substring find and
+   its fused exists_before at row widths 1 to 128, base pointers 0 to 15
+   bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
+   on strided inputs with its state written in place) and at the shapes
    the main paths give it (2b: TPC-H q1 and q18 group sums, the q13
-   ``o_comment`` dictionary, the tuple hash of lineitem's (l_orderkey,
-   l_linenumber), Qwen3-14B's prefill attention on the bf16 tensor-core
-   kernel and, on float32 copies, the CUDA-core kernel, RWKV6-7B's decode
-   recurrence and its prefill shape), with times and bounds;
+   ``o_comment`` dictionary's find and exists_before, q9's ``p_name``
+   and q16's ``s_comment`` dictionaries, the tuple hash of lineitem's
+   (l_orderkey, l_linenumber), Qwen3-14B's prefill attention on the bf16
+   tensor-core kernel and, on float32 copies, the CUDA-core kernel,
+   RWKV6-7B's decode recurrence and its prefill shape), with times and
+   bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
-   must rise during that run (the segment sum's first-pass launches are
-   printed by path); then a third pass under ``torch.profiler``
+   must rise during that run (the first pass's launches are printed by
+   path for the segment sum and by form for the substring search, whose
+   fused exists_before must have run); then a third pass under ``torch.profiler``
    for the device's busy share, and the three slowest warm queries once
    more under ``cProfile``;
 4. the card against the CPU plain path on all 22 queries at SF 0.01:
@@ -82,6 +87,12 @@ REPS = 20
 # tried for one kernel's device time (phase 2b).
 PROFILE_BUDGET_S = 60.0
 PROFILE_TRIES = 3
+# K2's edge checks: rows, row widths, pattern lengths (and L itself), and the
+# bytes rows and patterns are drawn from (NUL and bytes >= 0x80 among them)
+SUBSTR_EDGE_ROWS = 1001
+SUBSTR_EDGE_L = (1, 15, 16, 17, 37, 100, 128)
+SUBSTR_EDGE_M = (1, 2, 7, 8, 15, 16, 17, 33)
+SUBSTR_ALPHABET = np.frombuffer(b"aab\x00\x80\xffspecial", dtype=np.uint8)
 # K4 and K5 against their plain versions: (rtol = atol) per input dtype,
 # those of tests/test_kernels.py (f32 sums in another order; bf16 output
 # rounding), and timed repetitions at their main-path shapes.
@@ -196,16 +207,106 @@ def segment_ids(rng, n: int, m: int, order: str) -> np.ndarray:
     return np.sort(ids) if order == "sorted" else ids
 
 
-def check_substr_find(torch, sf, packed, lens, pat, start, label):
+def check_substr_find(torch, sf, packed, lens, pat, start, label, quiet: bool = False):
     got = sf.substr_find_cuda(packed, lens, pat, start)
     want = sf.substr_find_plain(packed, lens, pat, start)
     torch.cuda.synchronize()
     ok = torch.equal(got, want)
-    log(f"  substr_find {label}: n={packed.shape[0]} L={packed.shape[1]} m={pat.numel()} "
-        f"start={'yes' if start is not None else 'no'} exact {'ok' if ok else 'MISMATCH'}")
+    if not quiet or not ok:
+        log(f"  substr_find {label}: n={packed.shape[0]} L={packed.shape[1]} m={pat.numel()} "
+            f"start={'yes' if start is not None else 'no'} exact {'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"substr_find kernel disagrees with its plain version at {label}")
     return got
+
+
+def check_exists_before(torch, sf, packed, lens, pat_a, pat_b, label):
+    got = sf.exists_before_cuda(packed, lens, pat_a, pat_b)
+    want = sf.exists_before_plain(packed, lens, pat_a, pat_b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"exists_before kernel disagrees with its plain version at {label}: n={packed.shape[0]} "
+            f"L={packed.shape[1]} m_a={pat_a.numel()} m_b={pat_b.numel()}")
+    return got
+
+
+def substr_rows(torch, rng, dev, n: int, L: int, offset: int, pat_a: bytes, pat_b: bytes):
+    """n rows of L bytes whose first byte lies ``offset`` bytes past the
+    start of a fresh allocation (so past a 16-byte boundary), from an
+    alphabet with NUL and bytes >= 0x80; lengths 0 to L with -1, 0, L and
+    L + 3 among them; bytes past a row's length random, or NUL as packing
+    leaves them.  Some rows hold ``pat_a`` at the very end of their length,
+    or ``pat_a`` first and ``pat_b`` at the end, or "aaab"."""
+    flat = SUBSTR_ALPHABET[rng.integers(0, SUBSTR_ALPHABET.size, offset + n * L)]
+    rows = flat[offset:].reshape(n, L)
+    lens = rng.integers(0, L + 1, n).astype(np.int32)
+    lens[:4] = (-1, 0, L, L + 3)[: min(4, n)]
+    a, b = np.frombuffer(pat_a, np.uint8), np.frombuffer(pat_b, np.uint8)
+    for r in range(n):
+        e = int(min(max(lens[r], 0), L))
+        kind = r % 5
+        if kind == 1 and a.size <= e:
+            rows[r, e - a.size:e] = a
+        elif kind == 2 and a.size + b.size <= e:
+            rows[r, :a.size] = a
+            rows[r, e - b.size:e] = b
+        elif kind == 3 and e >= 4:
+            rows[r, :4] = np.frombuffer(b"aaab", np.uint8)
+        elif kind == 4:
+            rows[r, e:] = 0
+    buf = torch.as_tensor(flat, device=dev)
+    return buf[offset:].view(n, L), torch.as_tensor(lens, device=dev)
+
+
+def substr_edge_phase(torch, sf, dev) -> None:
+    """K2's find (without and with per-row starts from -3 to L + 3) and
+    fused exists_before against their plain versions, exactly, at each L
+    of SUBSTR_EDGE_L, base pointers 0 to 15 bytes past a 16-byte boundary
+    and pattern lengths SUBSTR_EDGE_M (and L): random patterns, a
+    self-overlapping one ("aa...ab"), a == b, b before a, empty patterns
+    and patterns longer than L."""
+    log("phase 2a: edge shapes of substr_find and exists_before (K2)")
+    rng = np.random.default_rng(11)
+
+    def pat(raw: bytes):
+        return torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+
+    def rand_pat(m: int) -> bytes:
+        return SUBSTR_ALPHABET[rng.integers(0, SUBSTR_ALPHABET.size, m)].tobytes()
+
+    n = SUBSTR_EDGE_ROWS
+    for L in SUBSTR_EDGE_L:
+        cases = 0
+        for offset in range(16):
+            for m in sorted({m for m in SUBSTR_EDGE_M if m <= L} | {L}):
+                raw_a, raw_b = rand_pat(m), rand_pat(max(1, m // 2))
+                packed, lens = substr_rows(torch, rng, dev, n, L, offset, raw_a, raw_b)
+                start = torch.as_tensor(rng.integers(-3, L + 4, n).astype(np.int32), device=dev)
+                a, b, ovl = pat(raw_a), pat(raw_b), pat(b"a" * (m - 1) + b"b")
+                label = f"edge L={L} offset={offset} m={m}"
+                for p in (a, ovl):
+                    for st in (None, start):
+                        check_substr_find(torch, sf, packed, lens, p, st, label, quiet=True)
+                for x, y in ((a, b), (a, a), (ovl, b), (b, a)):
+                    check_exists_before(torch, sf, packed, lens, x, y, label)
+                cases += 8
+            empty, long_ = pat(b""), pat(b"x" * (L + 1))
+            label = f"edge L={L} offset={offset} empty or longer than L"
+            for p in (empty, long_):
+                check_substr_find(torch, sf, packed, lens, p, start, label, quiet=True)
+            for x, y in ((empty, b), (a, empty), (empty, empty), (long_, b), (a, long_), (empty, long_)):
+                check_exists_before(torch, sf, packed, lens, x, y, label)
+            cases += 8
+        log(f"  L={L}: {cases} cases over offsets 0..15 exact ok")
+    # many rows a warp: the persistent loop over several steps
+    packed, lens = substr_rows(torch, rng, dev, 300_007, 37, 5, b"special", b"requests")
+    start = torch.as_tensor(rng.integers(-3, 41, packed.shape[0]).astype(np.int32), device=dev)
+    for st in (None, start):
+        check_substr_find(torch, sf, packed, lens, pat(b"special"), st, "300,007 rows, L=37, offset 5")
+    check_exists_before(torch, sf, packed, lens, pat(b"special"), pat(b"requests"),
+                        "300,007 rows, L=37, offset 5")
+    log("  exists_before 300,007 rows, L=37, offset 5: exact ok")
 
 
 def edge_phase(torch, seg, sf, dev) -> None:
@@ -247,15 +348,7 @@ def edge_phase(torch, seg, sf, dev) -> None:
     if not torch.equal(empty, torch.zeros(5, dtype=torch.float64, device=dev)):
         raise AssertionError("segment_sum of no rows must be zeros")
 
-    alphabet = np.frombuffer(b"abspecialx yz", dtype=np.uint8)
-    for n, L in [(1, 16), (1003, 16), (1003, 128), (4099, 37)]:
-        packed = torch.as_tensor(alphabet[rng.integers(0, alphabet.size, (n, L))], device=dev)
-        lens = torch.as_tensor(rng.integers(0, L + 1, n).astype(np.int32), device=dev)
-        start = torch.as_tensor(rng.integers(-2, L, n).astype(np.int32), device=dev)
-        for pat in (b"", b"a", b"ab", b"special", b"x" * (L + 1)):
-            p = torch.tensor(list(pat), dtype=torch.uint8, device=dev)
-            for st in (None, start):
-                check_substr_find(torch, sf, packed, lens, p, st, "edge")
+    substr_edge_phase(torch, sf, dev)
 
 
 def check_hash32x2(torch, cols, label):
@@ -286,6 +379,40 @@ def hash_edge_phase(torch, dev) -> None:
     for dtype in (torch.uint32, torch.int32):  # >= 2^31 as uint32; negative as int32
         check_hash32x2(torch, torch.as_tensor(bits.view(np.int32), device=dev).view(dtype),
                        "high bit set")
+
+
+def substr_row(torch, sf, label, packed, lens, pat_a, pat_b=None) -> dict:
+    """K2 at one main-path shape: the find of ``pat_a``, or with ``pat_b``
+    the fused exists_before, checked exactly against its plain version and
+    timed; the bound counts each row's bytes up to its scan end (the end
+    of the first match, or its length; for exists_before the later of the
+    two searches' ends), its length read and its result written."""
+    n, L = packed.shape
+    ma = pat_a.numel()
+    end = torch.clamp(lens, 0, L).to(torch.int64)
+    if pat_b is None:
+        got = check_substr_find(torch, sf, packed, lens, pat_a, None, label)
+        scan_end = torch.where(got >= 0, got.to(torch.int64) + ma, end)
+        nbytes = int(scan_end.sum()) + n * (4 + 4)
+        call = lambda: sf.substr_find_cuda(packed, lens, pat_a)
+        plain = lambda: sf.substr_find_plain(packed, lens, pat_a)
+        key = "substr_find_rows"
+    else:
+        check_exists_before(torch, sf, packed, lens, pat_a, pat_b, label)
+        fa = sf.substr_find_plain(packed, lens, pat_a)
+        start = torch.where(fa >= 0, fa + ma, 0).to(torch.int32)
+        fb = sf.substr_find_plain(packed, lens, pat_b, start)
+        scan_end = torch.where((fa >= 0) & (fb >= 0), fb.to(torch.int64) + pat_b.numel(), end)
+        nbytes = int(scan_end.sum()) + n * (4 + 1)
+        call = lambda: sf.exists_before_cuda(packed, lens, pat_a, pat_b)
+        plain = lambda: sf.exists_before_plain(packed, lens, pat_a, pat_b)
+        key = "exists_before_rows"
+    b_ms, b_by = bound_ms(nbytes, int(scan_end.sum()))
+    row = dict(label=label, n=n, L=L, max_abs_err=0.0, ms=cuda_ms(torch, call, REPS),
+               device_ms=device_ms(torch, call, key, REPS), plain_ms=cuda_ms(torch, plain, REPS),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    log("   ", json.dumps(row))
+    return row
 
 
 def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
@@ -327,31 +454,31 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
         seg_rows.append(row)
     out["segment_sum"] = seg_rows
 
-    # K2: q13's o_comment dictionary, packed as the dictionary-LUT path packs it
-    dic = frames["orders"].offloaded["o_comment"].phys_factorize()[1]
-    packed, lens = strings.pack_strings_cached(dic, CONFIG.max_packed_len, dev)
-    pat_a = torch.tensor(list(b"special"), dtype=torch.uint8, device=dev)
-    pat_b = torch.tensor(list(b"requests"), dtype=torch.uint8, device=dev)
-    fa = check_substr_find(torch, sf, packed, lens, pat_a, None, "q13 'special'")
-    start = torch.where(fa >= 0, fa + pat_a.numel(), 0).to(torch.int32)
-    check_substr_find(torch, sf, packed, lens, pat_b, start, "q13 'requests' after it")
-    find_rows = []
-    for label, p, st, res in [("q13 o_comment dictionary 'special'", pat_a, None, fa)]:
-        k_ms = cuda_ms(torch, lambda: sf.substr_find_cuda(packed, lens, p, st), REPS)
-        d_ms = device_ms(torch, lambda: sf.substr_find_cuda(packed, lens, p, st),
-                         "substr_find_rows", REPS)
-        p_ms = cuda_ms(torch, lambda: sf.substr_find_plain(packed, lens, p, st), REPS)
-        # bytes this run's data needs: each row up to the end of its
-        # first match (or its length), plus lens read and results written
-        L, m = packed.shape[1], p.numel()
-        scan_end = torch.where(res >= 0, res + m, torch.clamp(lens, max=L)).to(torch.int64)
-        scanned = int(scan_end.sum())
-        nbytes = scanned + packed.shape[0] * (4 + 4)
-        b_ms, b_by = bound_ms(nbytes, scanned)
-        row = dict(label=label, n=packed.shape[0], L=L, max_abs_err=0.0, ms=k_ms,
-                   device_ms=d_ms, plain_ms=p_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        log("   ", json.dumps(row))
-        find_rows.append(row)
+    # K2: each string predicate of the main path on the dictionary it
+    # runs on, packed as the dictionary-LUT path packs it: q13's find of
+    # "special" (K2's main row) and its whole exists_before, q9's
+    # contains("green"), q16's exists_before
+    def packed_dictionary(table, column):
+        dic = col(column).eval(frames[table]).dictionary
+        return strings.pack_strings_cached(dic, CONFIG.max_packed_len, dev)
+
+    def pat(raw: bytes):
+        return torch.tensor(list(raw), dtype=torch.uint8, device=dev)
+
+    q13 = packed_dictionary("orders", "o_comment")
+    q9 = packed_dictionary("part", "p_name")
+    q16 = packed_dictionary("supplier", "s_comment")
+    fa = check_substr_find(torch, sf, *q13, pat(b"special"), None, "q13 'special'")
+    start = torch.where(fa >= 0, fa + len(b"special"), 0).to(torch.int32)
+    check_substr_find(torch, sf, *q13, pat(b"requests"), start, "q13 'requests' after it")
+    find_rows = [
+        substr_row(torch, sf, "q13 o_comment dictionary find 'special'", *q13, pat(b"special")),
+        substr_row(torch, sf, "q13 o_comment dictionary exists_before('special', 'requests')",
+                   *q13, pat(b"special"), pat(b"requests")),
+        substr_row(torch, sf, "q9 p_name dictionary find 'green'", *q9, pat(b"green")),
+        substr_row(torch, sf, "q16 s_comment dictionary exists_before('Customer', 'Complaints')",
+                   *q16, pat(b"Customer"), pat(b"Complaints")),
+    ]
     out["substr_find"] = find_rows
 
     # K3: lineitem's composite key, the tuple a hash partition of it hashes.
@@ -887,8 +1014,9 @@ def profile_pass(torch, QF, frames, sf: float) -> None:
             break
     wall, busy = sum(walls), sum(busies)
     ported = {
-        name: sum(ms for key, (ms, _) in per_op.items() if name in key)
-        for name in ("segment_sum", "substr_find")
+        name: sum(ms for key, (ms, _) in per_op.items() if any(k in key for k in keys))
+        for name, keys in (("segment_sum", ("segment_sum",)),
+                           ("substr_find", ("substr_find_rows", "exists_before_rows")))
     }
     log(f"  all profiled queries: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %)")
@@ -1008,6 +1136,13 @@ def main() -> int:
     pass1 = dict(ops.LAUNCHES)
     log(f"  segment_sum launches of pass 1 by path (m <= {seg.FEW_SLOTS}, "
         f"<= {seg.SMEM_SLOTS}, above): {json.dumps(ops.PATH_LAUNCHES)}")
+    substr_modes = dict(sf.MODE_LAUNCHES)
+    log(f"  substr_find launches of pass 1 by form: {json.dumps(substr_modes)}")
+    if substr_modes["exists_before"] == 0:
+        raise AssertionError("the main path never launched exists_before's fused form")
+    if sum(substr_modes.values()) != pass1["substr_find"]:
+        raise AssertionError(f"substr_find launches by form {substr_modes} do not add up to "
+                             f"{pass1['substr_find']}")
     res2, ms2 = run_queries(torch, QF, frames, args.sf)
     launches = dict(ops.LAUNCHES)
     log(f"  launches after pass 1: {pass1}; after both passes: {launches}")

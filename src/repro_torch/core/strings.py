@@ -127,9 +127,9 @@ def endswith(packed: torch.Tensor, lens: torch.Tensor, pat: str) -> torch.Tensor
 
 
 def exists_before(packed: torch.Tensor, lens: torch.Tensor, first: str, second: str) -> torch.Tensor:
-    """True where ``first`` occurs and ``second`` occurs after it (two
-    substring searches).  The paper's ``not_string_exists_before``
-    (Q13/Q16) is the negation."""
+    """True where ``first`` occurs and ``second`` occurs after its end (on
+    the card one launch of the substring kernel's fused form).  The
+    paper's ``not_string_exists_before`` (Q13/Q16) is the negation."""
     dev = packed.device
     return ops.exists_before(packed, lens, _pat_tensor(first, dev), _pat_tensor(second, dev))
 

@@ -37,7 +37,7 @@ _F = ctypes.c_float
 #: C signature of each kernel source's entry point: (symbol, argtypes).
 SIGNATURES = {
     "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P]),
-    "substr_find": ("repro_substr_find", [_P, _P, _P, _I, _P, _L, _I, _P, _P]),
+    "substr_find": ("repro_substr_find", [_I, _P, _P, _P, _P, _I, _P, _I, _L, _I, _P, _P]),
     "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
     "flash_attention": (
         "repro_flash_attention",

@@ -16,15 +16,19 @@ from .build import LAUNCHES  # noqa: F401  (re-exported)
 from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .hash32x2 import hash32x2_cuda, hash32x2_plain
 from .segment_reduce import PATH_LAUNCHES, segment_sum_cuda, segment_sum_plain
-from .substr_find import substr_find_cuda, substr_find_plain
+from .substr_find import (
+    MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
+)
 from .wkv6 import wkv6_cuda, wkv6_plain
 
 
 def reset_launches() -> None:
-    """Zero every kernel's launch count, and the segment sum's by path."""
+    """Zero every kernel's launch count, the segment sum's by path and
+    the substring search's by form."""
     build.reset_launches()
-    for name in PATH_LAUNCHES:
-        PATH_LAUNCHES[name] = 0
+    for counts in (PATH_LAUNCHES, MODE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _route(t: torch.Tensor, fn: str) -> str:
@@ -54,12 +58,13 @@ def substr_find(
 
 
 def exists_before(packed, lens, pat_a: torch.Tensor, pat_b: torch.Tensor) -> torch.Tensor:
-    """True where ``pat_a`` occurs and ``pat_b`` occurs after it: two
-    ``substr_find`` calls, as ``exists_before_pallas`` makes."""
-    fa = substr_find(packed, lens, pat_a)
-    start = torch.where(fa >= 0, fa + int(pat_a.shape[0]), 0).to(torch.int32)
-    fb = substr_find(packed, lens, pat_b, start=start)
-    return (fa >= 0) & (fb >= 0)
+    """True where ``pat_a`` occurs and ``pat_b`` occurs after the end of
+    its first occurrence (K2): on the card one launch of the substring
+    kernel's fused form, which reads each row once; on the CPU the two
+    plain finds that ``exists_before_pallas`` also makes."""
+    if _route(packed, "exists_before") == "cuda":
+        return exists_before_cuda(packed, lens, pat_a, pat_b)
+    return exists_before_plain(packed, lens, pat_a, pat_b)
 
 
 def hash32x2(cols: torch.Tensor) -> torch.Tensor:

@@ -7,20 +7,14 @@ import torch
 from .flash_attention import flash_attention_plain
 from .hash32x2 import fmix32, hash32x2_plain  # noqa: F401  (fmix32 re-exported)
 from .segment_reduce import segment_sum_plain
-from .substr_find import substr_find_plain
+from .substr_find import exists_before_plain, substr_find_plain
 from .wkv6 import wkv6_plain
 
 #: K3's contract: (n, k) int32/uint32 -> (n, 2) uint32; ``fmix32`` on
 #: int64 values in [0, 2^32), as PyTorch has no uint32 shift on the CPU
 hash32x2 = hash32x2_plain
 substr_find = substr_find_plain
-
-
-def exists_before(packed, lens, pat_a: torch.Tensor, pat_b: torch.Tensor) -> torch.Tensor:
-    fa = substr_find(packed, lens, pat_a)
-    start = torch.where(fa >= 0, fa + int(pat_a.shape[0]), 0).to(torch.int32)
-    fb = substr_find(packed, lens, pat_b, start=start)
-    return (fa >= 0) & (fb >= 0)
+exists_before = exists_before_plain
 
 
 def segment_sum_sorted(values: torch.Tensor, seg_ids: torch.Tensor, num_segments: int):

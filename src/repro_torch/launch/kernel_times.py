@@ -1,19 +1,27 @@
-"""Time K1, K5 and RWKV6-7B's decode step on the card through the public
-API, and print one JSON line.
+"""Time K1, K2, K5 and RWKV6-7B's decode step on the card through the
+public API, and print one JSON line.
 
-    python3 src/repro_torch/launch/kernel_times.py
+    PYTHONPATH=src python3 src/repro_torch/launch/kernel_times.py
     PYTHONPATH=<other checkout>/src python3 src/repro_torch/launch/kernel_times.py
 
 The second form times another checkout of the port with this script, so
 two versions can be compared in turns on one card (A, B, B, A).  It uses
 only what every version of the port has: ``ops.segment_sum``,
-``ops.wkv6`` (contiguous inputs, state passed) and ``ServeEngine``; where
+``ops.substr_find``, ``ops.exists_before``, ``strings.pack_strings``,
+the TPC-H generator's word salad, ``ops.wkv6`` (contiguous inputs, state
+passed) and ``ServeEngine``; where
 ``ops.wkv6`` takes ``state_out`` it also times the decode step's own
 call (strided views, the state written over itself).
 
 * K1 at two synthetic shapes of TPC-H SF 1: q1's (5,916,712 rows into 6
   groups at random, float64) and q18's (6,001,303 rows into 1,500,000
   groups in runs of 1 to 7 equal ids, float64);
+* K2 on a q13-like ``o_comment`` dictionary: 1,500,000 comments from
+  the generator's ``_rand_words``, 1 % with "special ... requests"
+  injected by its ``_inject_pattern`` (seed 0), packed to 128 bytes a
+  row; the find of "special" and the whole ``exists_before("special",
+  "requests")`` (one fused launch, or two finds and their glue, as the
+  version has it);
 * K5 at RWKV6-7B's decode shape (B 4, H 64, T 1, D 64, bf16 inputs and
   u, float32 state);
 * RWKV6-7B at full width with random bf16 weights: 16 requests over 4
@@ -55,6 +63,8 @@ def main() -> int:
         return 2
     import repro_torch
     from repro_torch.configs import get
+    from repro_torch.core import strings
+    from repro_torch.data import tpch
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
@@ -76,6 +86,17 @@ def main() -> int:
     v18 = torch.as_tensor(rng.integers(1, 51, ids.size).astype(np.float64), device=dev)
     out["segment_sum_q1_ms"] = event_ms(lambda: ops.segment_sum(v1, g1, 6))
     out["segment_sum_q18_ms"] = event_ms(lambda: ops.segment_sum(v18, g18, 1_500_000))
+
+    # K2
+    words = np.random.default_rng(0)
+    comments = tpch._inject_pattern(
+        words, tpch._rand_words(words, 1_500_000), "special", "requests", 0.01)
+    packed, lens = strings.pack_strings(comments, 128, dev)
+    pa = torch.tensor(list(b"special"), dtype=torch.uint8, device=dev)
+    pb = torch.tensor(list(b"requests"), dtype=torch.uint8, device=dev)
+    out["substr_find_q13_ms"] = event_ms(lambda: ops.substr_find(packed, lens, pa))
+    out["exists_before_q13_ms"] = event_ms(lambda: ops.exists_before(packed, lens, pa, pb))
+    del packed, lens
 
     # K5
     B, H, D = 4, 64, 64

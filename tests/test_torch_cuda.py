@@ -20,7 +20,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
 from repro_torch.kernels.hash32x2 import hash32x2_cuda, hash32x2_plain
 from repro_torch.kernels.segment_reduce import segment_sum_cuda, segment_sum_plain
-from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
+from repro_torch.kernels.substr_find import (
+    MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
+)
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 from repro_torch.models import lm
 from repro_torch.models.config import reduced
@@ -106,6 +108,90 @@ def test_substr_find_kernel_matches_plain(cuda_device, pat):
     p = torch.tensor(list(pat.encode()), dtype=torch.uint8, device=cuda_device)
     for st in (None, start):
         assert torch.equal(substr_find_cuda(packed, lens, p, st), substr_find_plain(packed, lens, p, st))
+
+
+def _offset_rows(rng, n, L, offset, device):
+    """(n, L) uint8 rows whose first byte lies ``offset`` bytes past a
+    16-byte boundary (a view into a fresh allocation), from an alphabet
+    with NUL and bytes >= 0x80, lengths -1, 0, L, L + 3 and 0..L; some rows
+    end in "aab", some start with "aaab" then "special"."""
+    alphabet = np.frombuffer(b"aab\x00\x80\xffspecial", np.uint8)
+    flat = alphabet[rng.integers(0, alphabet.size, offset + n * L)]
+    rows = flat[offset:].reshape(n, L)
+    lens = rng.integers(0, L + 1, n).astype(np.int32)
+    lens[:4] = (-1, 0, L, L + 3)
+    for r in range(4, n, 3):
+        e = int(min(lens[r], L))
+        if e >= 11:
+            rows[r, :4] = np.frombuffer(b"aaab", np.uint8)
+            rows[r, e - 7:e] = np.frombuffer(b"special", np.uint8)
+        elif e >= 3:
+            rows[r, e - 3:e] = np.frombuffer(b"aab", np.uint8)
+    buf = torch.as_tensor(flat, device=device)
+    return buf[offset:].view(n, L), torch.as_tensor(lens, device=device)
+
+
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 37, 100, 128])
+@pytest.mark.parametrize("offset", [0, 1, 7, 15])
+def test_substr_kernels_match_plain_at_edge_shapes(cuda_device, L, offset):
+    """The find (without and with starts from -3 to L + 3) and the fused
+    exists_before, exactly, at base pointers off 16-byte alignment and
+    pattern lengths 0 to L + 1."""
+    rng = np.random.default_rng(L * 16 + offset)
+    packed, lens = _offset_rows(rng, 3001, L, offset, cuda_device)
+    start = torch.as_tensor(rng.integers(-3, L + 4, 3001).astype(np.int32), device=cuda_device)
+
+    def pat(raw):
+        return torch.tensor(list(raw), dtype=torch.uint8, device=cuda_device)
+
+    pats = [pat(b"")] + [pat(b"aab"[:m] if m <= 3 else rng.choice(
+        np.frombuffer(b"aab\x00\x80\xffspecial", np.uint8), m).tobytes())
+        for m in (1, 2, 3, 7, 8, 15, 16, 17, 33, L, L + 1)]
+    pats += [pat(b"special"[: min(7, L)]), pat(b"x" * (L + 1))]
+    for p in pats:
+        for st in (None, start):
+            assert torch.equal(substr_find_cuda(packed, lens, p, st),
+                               substr_find_plain(packed, lens, p, st))
+    for a in pats:
+        for b in (pats[0], pats[1], pat(b"special"[: min(7, L)]), a):
+            assert torch.equal(exists_before_cuda(packed, lens, a, b),
+                               exists_before_plain(packed, lens, a, b))
+
+
+def test_exists_before_is_one_launch_of_the_fused_form(cuda_device):
+    rng = np.random.default_rng(2)
+    packed, lens = _offset_rows(rng, 50_001, 128, 0, cuda_device)
+    a = torch.tensor(list(b"aab"), dtype=torch.uint8, device=cuda_device)
+    b = torch.tensor(list(b"special"), dtype=torch.uint8, device=cuda_device)
+    ops.reset_launches()
+    got = ops.exists_before(packed, lens, a, b)
+    assert ops.LAUNCHES["substr_find"] == 1
+    assert MODE_LAUNCHES == {"find": 0, "exists_before": 1}
+    assert got.dtype == torch.bool and torch.equal(got, exists_before_plain(packed, lens, a, b))
+    ops.substr_find(packed, lens, a)
+    assert ops.LAUNCHES["substr_find"] == 2 and MODE_LAUNCHES == {"find": 1, "exists_before": 1}
+
+
+def test_substr_wrappers_refuse_what_the_kernel_does_not_take(cuda_device):
+    packed = torch.zeros((4, 32), dtype=torch.uint8, device=cuda_device)
+    lens = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    a = torch.zeros(2, dtype=torch.uint8, device=cuda_device)
+    for find in (lambda p, l, x: substr_find_cuda(p, l, x),
+                 lambda p, l, x: exists_before_cuda(p, l, x, x)):
+        with pytest.raises(ValueError, match="not contiguous"):
+            find(packed[:, ::2], lens, a)
+        with pytest.raises(ValueError, match="not contiguous"):
+            find(packed, lens, torch.zeros(4, dtype=torch.uint8, device=cuda_device)[::2])
+        with pytest.raises(ValueError):
+            find(packed, lens.cpu(), a)
+        with pytest.raises(ValueError):
+            find(packed, lens, a.cpu())
+        with pytest.raises(TypeError):
+            find(packed, lens.long(), a)
+        with pytest.raises(TypeError):
+            find(packed.int(), lens, a)
+    with pytest.raises(ValueError, match="not contiguous"):
+        substr_find_cuda(packed, lens, a, torch.zeros(8, dtype=torch.int32, device=cuda_device)[::2])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

@@ -29,7 +29,9 @@ from repro_torch.kernels import wkv6 as twkv6
 from repro_torch.kernels.segment_reduce import (
     run_ranks_sorted, segment_path, segment_sum_cuda,
 )
-from repro_torch.kernels.substr_find import substr_find_cuda, substr_find_plain
+from repro_torch.kernels.substr_find import (
+    MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
+)
 from repro_torch.kernels.wkv6 import wkv6_cuda
 
 
@@ -187,6 +189,73 @@ def test_exists_before_matches_pallas_ref_and_python():
         np.testing.assert_array_equal(got, np.array([truth(s) for s in strs]))
 
 
+def _edge_rows(seed, n, L, a: bytes, b: bytes):
+    """Rows of L bytes (NUL and bytes >= 0x80 among them, random past each
+    length) with lengths -1, 0, L, L + 3 and 0..L; some rows end in ``a``,
+    some hold ``a`` first and ``b`` last, some start with "aaab"."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"aab\x00\x80\xffspecial", np.uint8)
+    buf = alphabet[rng.integers(0, alphabet.size, (n, L))]
+    lens = rng.integers(0, L + 1, n).astype(np.int32)
+    lens[:4] = (-1, 0, L, L + 3)
+    for r in range(4, n):
+        e = int(min(lens[r], L))
+        if r % 4 == 1 and len(a) <= e:
+            buf[r, e - len(a):e] = np.frombuffer(a, np.uint8)
+        elif r % 4 == 2 and len(a) + len(b) <= e:
+            buf[r, :len(a)] = np.frombuffer(a, np.uint8)
+            buf[r, e - len(b):e] = np.frombuffer(b, np.uint8)
+        elif r % 4 == 3 and e >= 4:
+            buf[r, :4] = np.frombuffer(b"aaab", np.uint8)
+    return buf, lens
+
+
+def _exists_before_truth(buf, lens, a: bytes, b: bytes):
+    out = []
+    for row, n in zip(buf, lens):
+        s = row[: max(0, min(int(n), row.size))].tobytes()
+        i = s.find(a)
+        out.append(i >= 0 and s.find(b, i + len(a)) >= 0)
+    return np.array(out)
+
+
+@pytest.mark.parametrize("L,a,b", [
+    (1, b"a", b"a"),                      # a == b, m == L
+    (15, b"aab", b"\x80\x00"),           # self-overlapping a; bytes >= 0x80 and NUL
+    (17, b"special", b"spe"),             # b a prefix of a
+    (37, b"\xffa", b"aab"),
+    (16, b"", b"ab"),                     # a empty: b searched from 0
+    (16, b"ab", b""),                     # b empty: true where a occurs
+    (16, b"", b""),                       # both empty: every row, any length
+    (16, b"x" * 17, b"a"),                # a longer than L
+    (16, b"a", b"x" * 17),                # b longer than L
+])
+def test_exists_before_plain_matches_pallas_ref_and_python(L, a, b):
+    buf, lens = _edge_rows(L * 7 + len(a), 64, L, a, b)
+    pa, pb = np.frombuffer(a, np.uint8), np.frombuffer(b, np.uint8)
+    got = exists_before_plain(_t(buf), _t(lens), _t(pa), _t(pb)).numpy()
+    pallas = np.asarray(exists_before_pallas(
+        jnp.asarray(buf), jnp.asarray(lens), jnp.asarray(pa), jnp.asarray(pb), block_rows=64))
+    want = np.asarray(jref.exists_before(jnp.asarray(buf), jnp.asarray(lens), jnp.asarray(pa),
+                                         jnp.asarray(pb)))
+    assert got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)  # exact
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, _exists_before_truth(buf, lens, a, b))
+
+
+def test_ops_exists_before_takes_the_plain_route_on_cpu():
+    buf, lens = _edge_rows(3, 40, 24, b"special", b"aab")
+    pa, pb = _t(np.frombuffer(b"special", np.uint8)), _t(np.frombuffer(b"aab", np.uint8))
+    MODE_LAUNCHES["exists_before"] = 5  # reset_launches zeroes the counts by form too
+    ops.reset_launches()
+    got = ops.exists_before(_t(buf), _t(lens), pa, pb)
+    assert torch.equal(got, exists_before_plain(_t(buf), _t(lens), pa, pb))
+    assert torch.equal(got, tref.exists_before(_t(buf), _t(lens), pa, pb))
+    assert MODE_LAUNCHES == {"find": 0, "exists_before": 0}
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
 @pytest.mark.parametrize("pat", ["special", "zz", ""])
 def test_engine_string_search_matches_jax_engine(pat):
     rng = np.random.default_rng(3)
@@ -306,6 +375,9 @@ def test_ops_dispatch_raises_on_other_devices():
     with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.substr_find(packed, lens, torch.zeros(2, dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
+        ops.exists_before(packed, lens, torch.zeros(2, dtype=torch.uint8, device="meta"),
+                          torch.zeros(1, dtype=torch.uint8, device="meta"))
+    with pytest.raises(ValueError, match="no kernel or plain version"):
         ops.hash32x2(torch.zeros((4, 2), dtype=torch.int32, device="meta"))
 
 
@@ -317,6 +389,11 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
         substr_find_cuda(
             torch.zeros((3, 4), dtype=torch.uint8), torch.zeros(3, dtype=torch.int32),
             torch.zeros(1, dtype=torch.uint8),
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        exists_before_cuda(
+            torch.zeros((3, 4), dtype=torch.uint8), torch.zeros(3, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.uint8), torch.zeros(2, dtype=torch.uint8),
         )
     x = torch.zeros((1, 2, 3, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -331,6 +408,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
         hash32x2_cuda(torch.zeros((3, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
         "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2")}
+    assert MODE_LAUNCHES == {"find": 0, "exists_before": 0}
 
 
 def test_wkv6_signature_cache_checks_each_new_signature_in_full():
