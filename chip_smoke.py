@@ -18,31 +18,48 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``o_comment`` dictionary's find and exists_before, q9's ``p_name``
    and q16's ``s_comment`` dictionaries, the tuple hash of lineitem's
    (l_orderkey, l_linenumber), Qwen3-14B's prefill attention on the bf16
-   tensor-core kernel and, on float32 copies, the CUDA-core kernel,
-   RWKV6-7B's decode recurrence and its prefill shape), with times and
-   bounds;
+   tensor-core kernel and, on float32 copies, the CUDA-core kernel, the
+   bf16 attention of the later families' prefills (Kimi-K2: GQA group 8
+   at head dim 112; Zamba2's shared block: group 1 at 80; the vision
+   model's cross-attention: non-causal, 4096 queries over 1600 keys;
+   MusicGen: head dim 64), RWKV6-7B's decode recurrence and its prefill
+   shape), with times and bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
    must rise during that run (the first pass's launches are printed by
    path for the segment sum and by form for the substring search, whose
-   fused exists_before must have run); then a third pass under ``torch.profiler``
-   for the device's busy share, and the three slowest warm queries once
-   more under ``cProfile``;
+   fused exists_before must have run), and the segment sum's mid path
+   timed at the inputs of the query that launches it most; then a third
+   pass under ``torch.profiler`` for the device's busy share, each ported
+   kernel's launches counted in it and its device time read from it (a
+   query is profiled again, up to ``PROFILE_TRIES`` sessions, while a
+   kernel it launched shows no device time), and the three slowest warm
+   queries once more under ``cProfile``;
 4. the card against the CPU plain path on all 22 queries at SF 0.01:
    ints, codes and row order exactly, floats within rtol 1e-8;
 6. the LM path at full width with random weights from ``--seed``:
    Qwen3-14B prefilled at B=1, S=4096 (exactly one launch of the bf16
    tensor-core attention kernel per layer, none of the f32 one) and
    served (8 requests over 4 slots), then RWKV6-7B served (16 requests
-   over 4 slots, exactly one WKV launch per layer and decode step);
+   over 4 slots, exactly one WKV launch per layer and decode step), then
+   the four families that came later, at their published widths with
+   depth cut to fit one card where it must (``NEW_LM``): DBRX-132B and
+   Kimi-K2 (MoE FFN), Zamba2-2.7B (Mamba2 hybrid), Llama-3.2-Vision-90B
+   (cross-attention over 1600 image tokens) and MusicGen-medium (frame
+   embeddings in), each prefilled at S=4096 with exactly one
+   tensor-core attention launch per attention layer and nothing else,
+   then served through ``ServeEngine`` (MusicGen, which takes no tokens:
+   16 ``decode_step``s at B=4) with no kernel launched in decode;
    prefill and decode-step times, tokens per second, peak device
    memory, and the device's busy share of a profiled prefill and decode
    pass;
-7. the card against the CPU on the LM path: reduced float32 Qwen3-14B
-   (attention through the f32 CUDA-core kernel) and RWKV6-7B with the
-   same weights on both devices, prefill logits within 1e-4 and served
-   tokens equal;
+7. the card against the CPU on the LM path: every family at a reduced
+   float32 config (attention through the f32 CUDA-core kernel, once per
+   attention layer and nothing else; the vision model's cross-attention
+   gates opened to 0.5) with the same weights on both devices, prefill
+   logits within 1e-4 and served tokens equal (MusicGen: four
+   ``decode_step``s' logits);
 5. one JSON line describing every kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -83,10 +100,12 @@ QUERY_RTOL = 1e-8
 # of each kernel at each main-path shape (phase 2b).
 CHECK_SF = 0.01
 REPS = 20
-# Wall-time budget of the profiled pass (phase 3b), and profiler sessions
-# tried for one kernel's device time (phase 2b).
-PROFILE_BUDGET_S = 60.0
+# Profiler sessions tried for one kernel's device time (phases 2b and 3b),
+# and the short kernels (torch.cuda._sleep, whose device kernel is named
+# spin_kernel) that open each session of phases 3b and 6 before the work
+# it measures, to take the loss of a session's first device events
 PROFILE_TRIES = 3
+PAD_KERNELS, PAD_CYCLES, PAD_KEY = 64, 2000, "spin_kernel"
 # K2's edge checks: rows, row widths, pattern lengths (and L itself), and the
 # bytes rows and patterns are drawn from (NUL and bytes >= 0x80 among them)
 SUBSTR_EDGE_ROWS = 1001
@@ -102,8 +121,19 @@ LM_REPS = 10
 # The LM path (phase 6): prompt length of the prefill, and the serving
 # runs' requests, slots, cache length and new tokens per request.
 PREFILL_LEN = 4096
-SERVE = {"qwen3-14b": 8, "rwkv6-7b": 16}
+SERVE = {"qwen3-14b": 8, "rwkv6-7b": 16, "dbrx-132b": 8, "kimi-k2-1t-a32b": 8,
+         "zamba2-2.7b": 8, "llama-3.2-vision-90b": 8}
 SLOTS, MAX_LEN, MAX_NEW = 4, 256, 8
+# The families served after Qwen3-14B and RWKV6-7B, at their published
+# widths; the depth each keeps where its bf16 weights would not fit one
+# 80 GB card (PERF.md section 4 has the arithmetic), else None
+NEW_LM = {"dbrx-132b": 10, "kimi-k2-1t-a32b": 2, "zamba2-2.7b": None,
+          "llama-3.2-vision-90b": 40, "musicgen-medium": None}
+# MusicGen takes frame embeddings, which no engine feeds: decode steps at
+# this batch instead
+EMBED_STEPS, EMBED_BATCH = 16, 4
+# the cross-attention gate opened in phase 7 (it starts at 0: closed)
+CROSS_GATE = 0.5
 # Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
 LM_CHECK_TOL = 1e-4
 
@@ -415,6 +445,62 @@ def substr_row(torch, sf, label, packed, lens, pat_a, pat_b=None) -> dict:
     return row
 
 
+def segment_row(torch, seg, dev, label, v, g, m) -> dict:
+    """K1 at one main-path shape: checked against its plain version and
+    timed, beside ``index_add_``; the bound reads each value and id once
+    and writes each sum once."""
+    err = check_segment_sum(torch, seg, v, g, m, label)
+    k_ms = cuda_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), REPS)
+    d_ms = device_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), "segment_sum_", REPS)
+    p_ms = cuda_ms(torch, lambda: seg.segment_sum_plain(v, g, m), REPS)
+    l_ms = cuda_ms(
+        torch, lambda: torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, g, v), REPS
+    )
+    nbytes = v.numel() * (v.element_size() + 8) + m * v.element_size()
+    b_ms, b_by = bound_ms(nbytes, v.numel())
+    row = dict(label=label, n=v.numel(), m=m, dtype=str(v.dtype), path=seg.segment_path(m),
+               max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
+               bound_ms=b_ms, bound_by=b_by)
+    log("   ", json.dumps(row))
+    return row
+
+
+def mid_path_rows(torch, seg, ops, QF, frames, sf: float, dev) -> list:
+    """K1's mid path (17 to 4096 groups) at main-path shapes: one pass of
+    the queries records the inputs of every mid-path call by query; the
+    largest call of the query with the most of them is timed, and the
+    largest call of the pass where that is another."""
+    calls: dict = {}
+    real = ops.segment_sum_cuda
+    current = [None]
+
+    def recording(values, ids, m):
+        if seg.segment_path(m) == "mid":
+            calls.setdefault(current[0], []).append((values.clone(), ids.clone(), m))
+        return real(values, ids, m)
+
+    ops.segment_sum_cuda = recording
+    try:
+        for q in sorted(QF.ALL, key=lambda s: int(s[1:])):
+            current[0] = q
+            QF.ALL[q](frames, sf=sf, apply_limit=False)
+    finally:
+        ops.segment_sum_cuda = real
+    torch.cuda.synchronize()
+    log(f"  segment_sum mid-path calls by query: "
+        f"{json.dumps({q: [(c[0].numel(), c[2]) for c in cs] for q, cs in calls.items()})}")
+    if not calls:
+        raise AssertionError("no query took the segment sum's mid path")
+    most = max(calls, key=lambda q: (len(calls[q]), max(c[0].numel() for c in calls[q])))
+    largest = max(calls, key=lambda q: max(c[0].numel() for c in calls[q]))
+    rows = []
+    for q in dict.fromkeys((most, largest)):
+        v, g, m = max(calls[q], key=lambda c: c[0].numel())
+        rows.append(segment_row(torch, seg, dev, f"{q}: its largest mid-path sum ({v.dtype})",
+                                v, g, m))
+    return rows
+
+
 def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
     """Each kernel at the shapes the main path gives it, with times."""
     from repro_torch.core import col, d, strings
@@ -436,22 +522,7 @@ def main_shape_phase(torch, seg, sf, frames, dev) -> dict:
                   li1.col_values("l_quantity").contiguous(), gb1.gids.contiguous(), gb1.m))
     cases.append(("q1 size by flag,status",
                   torch.ones(li1.nrows, dtype=torch.int64, device=dev), gb1.gids.contiguous(), gb1.m))
-    seg_rows = []
-    for label, v, g, m in cases:
-        err = check_segment_sum(torch, seg, v, g, m, label)
-        k_ms = cuda_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), REPS)
-        d_ms = device_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), "segment_sum_", REPS)
-        p_ms = cuda_ms(torch, lambda: seg.segment_sum_plain(v, g, m), REPS)
-        l_ms = cuda_ms(
-            torch, lambda: torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, g, v), REPS
-        )
-        nbytes = v.numel() * (v.element_size() + 8) + m * v.element_size()
-        b_ms, b_by = bound_ms(nbytes, v.numel())
-        row = dict(label=label, n=v.numel(), m=m, dtype=str(v.dtype), max_abs_err=err,
-                   ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                   bound_by=b_by)
-        log("   ", json.dumps(row))
-        seg_rows.append(row)
+    seg_rows = [segment_row(torch, seg, dev, label, v, g, m) for label, v, g, m in cases]
     out["segment_sum"] = seg_rows
 
     # K2: each string predicate of the main path on the dictionary it
@@ -628,11 +699,17 @@ def lm_edge_phase(torch, dev) -> None:
                                       (1, 2, 2, 127, 127, 80), (1, 4, 2, 129, 129, 112),
                                       (2, 5, 1, 200, 200, 48), (1, 10, 2, 37, 129, 128),
                                       (1, 2, 1, 1, 1, 16), (1, 4, 4, 129, 200, 32),
-                                      (1, 5, 5, 127, 300, 96)]:
+                                      (1, 5, 5, 127, 300, 96),
+                                      # non-causal Sq > Sk (cross-attention), and
+                                      # kimi-k2's (group 8, D 112) and zamba2's
+                                      # (group 1, D 80) heads at ragged lengths
+                                      (1, 8, 1, 300, 130, 128), (1, 4, 4, 129, 37, 112),
+                                      (1, 16, 2, 131, 131, 112), (2, 8, 1, 77, 200, 112),
+                                      (1, 3, 3, 257, 257, 80), (1, 4, 4, 65, 190, 80)]:
             q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(dtype)
             k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
             v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
-            for causal in (True, False):
+            for causal in ((True, False) if Sq <= Sk else (False,)):
                 check_attention(torch, q.transpose(1, 2), k, v, causal, "edge")
         for B, H, T, D in [(1, 2, 1, 16), (3, 5, 7, 64), (2, 4, 64, 64), (1, 2, 7, 128)]:
             for with_state in (False, True):
@@ -666,14 +743,52 @@ def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq))
 
 
+def attention_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Sk, D):
+    """bf16 q, k, v of one prefill attention call, q strided as the model
+    hands it over."""
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(torch.bfloat16)
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(torch.bfloat16)
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(torch.bfloat16)
+    return q.transpose(1, 2), k, v
+
+
+def attention_row(torch, q, k, v, causal: bool, label: str) -> dict:
+    """The tensor-core kernel (the models' bf16 path) at one shape, with
+    the plain version and scaled_dot_product_attention on the same bf16
+    inputs; its bound at the bf16 tensor-core rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_attention_sm90
+
+    B, Hq, Sq, D = q.shape
+    Sk = k.shape[2]
+    qd = q.contiguous()
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
+    nops = 4 * D * attention_pairs(Sq, Sk, causal) * Hq * B
+    b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
+    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, causal), LM_REPS)
+    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qd, k, v, is_causal=causal, enable_gqa=True), LM_REPS)
+    err = check_attention(torch, q, k, v, causal, label)
+    k_ms = cuda_ms(torch, lambda: flash_attention_sm90(q, k, v, causal), LM_REPS * 5)
+    d_ms = device_ms(torch, lambda: flash_attention_sm90(q, k, v, causal),
+                     "flash_attention_sm90_kernel", LM_REPS * 5)
+    row = dict(label=label, kernel="flash_attention_sm90", max_abs_err=err, ms=k_ms,
+               device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    return row
+
+
 def lm_main_shape_phase(torch, dev) -> dict:
-    """K4 at Qwen3-14B's prefill shape and K5 at RWKV6-7B's decode shape,
-    bf16 as the models run them, with times and bounds."""
+    """K4 at the prefill shapes of the served models (Qwen3-14B's first,
+    then the later families') and K5 at RWKV6-7B's decode shape, bf16 as
+    the models run them, with times and bounds."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda_cores, flash_attention_plain, flash_attention_sm90,
+        flash_attention_cuda_cores, flash_attention_plain,
     )
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
@@ -682,29 +797,11 @@ def lm_main_shape_phase(torch, dev) -> dict:
     out = {}
     qc = get("qwen3-14b")
     B, Hq, Hkv, S, D = 1, qc.n_heads, qc.n_kv_heads, PREFILL_LEN, qc.hd
-    q = torch.as_tensor(rng.normal(size=(B, S, Hq, D)), device=dev).to(torch.bfloat16)
-    q = q.transpose(1, 2)  # the layout attention() hands over
-    k = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
-    v = torch.as_tensor(rng.normal(size=(B, Hkv, S, D)), device=dev).to(torch.bfloat16)
+    q, k, v = attention_inputs(torch, rng, dev, B, Hq, Hkv, S, S, D)
     label = f"qwen3-14b prefill: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal"
+    rows = [attention_row(torch, q, k, v, True, label)]
+    nops = rows[0]["ops"]
     qd = q.contiguous()
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
-    nops = 4 * D * attention_pairs(S, S, True) * Hq * B
-    b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
-    # the tensor-core kernel, the model's bf16 path, with the plain version
-    # and scaled_dot_product_attention on the same bf16 inputs
-    p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), LM_REPS)
-    l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
-    err = check_attention(torch, q, k, v, True, label)
-    k_ms = cuda_ms(torch, lambda: flash_attention_sm90(q, k, v, True), LM_REPS * 5)
-    d_ms = device_ms(torch, lambda: flash_attention_sm90(q, k, v, True),
-                     "flash_attention_sm90_kernel", LM_REPS * 5)
-    row = dict(label=label, kernel="flash_attention_sm90", max_abs_err=err, ms=k_ms,
-               device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=nbytes, ops=nops)
-    log("   ", json.dumps(row))
-    out["flash_attention_sm90"] = [row]
     # the CUDA-core kernel, whose model path is float32 (phase 7): float32
     # copies of the same inputs, its bound at the float32 rate, and
     # scaled_dot_product_attention on the same float32 inputs
@@ -725,6 +822,23 @@ def lm_main_shape_phase(torch, dev) -> dict:
     log("   ", json.dumps(row))
     out["flash_attention"] = [row]
     del q, qd, k, v
+    # the later families' prefill attention: each layer of kimi-k2 and of
+    # musicgen, zamba2's shared block, the vision model's cross-attention
+    # layers (its and dbrx's self-attention layers differ from Qwen3-14B's
+    # shape only in the number of query heads)
+    for arch, what in (("kimi-k2-1t-a32b", "prefill"), ("zamba2-2.7b", "shared block prefill"),
+                       ("llama-3.2-vision-90b", "cross-attention prefill"),
+                       ("musicgen-medium", "prefill")):
+        c = get(arch)
+        cross = bool(c.cross_attn_every)
+        Sk = c.n_img_tokens if cross else PREFILL_LEN
+        q, k, v = attention_inputs(torch, rng, dev, 1, c.n_heads, c.n_kv_heads, PREFILL_LEN,
+                                   Sk, c.hd)
+        label = (f"{arch} {what}: B=1 Hq={c.n_heads} Hkv={c.n_kv_heads} Sq={PREFILL_LEN} "
+                 f"Sk={Sk} D={c.hd} bf16 {'non-causal' if cross else 'causal'}")
+        rows.append(attention_row(torch, q, k, v, not cross, label))
+        del q, k, v
+    out["flash_attention_sm90"] = rows
 
     # K5 as the model calls it: strided views of (B, T, H, D), bf16 u (its
     # float32 copy cached), the state written over itself; at RWKV6-7B's
@@ -779,17 +893,35 @@ def device_busy(prof):
     return busy, per_op
 
 
-def profiled(torch, label: str, fn) -> None:
-    """Run ``fn`` once under ``torch.profiler``: wall, device busy and
-    idle share, and the device ops that take most of the time."""
+def session(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``, after PAD_KERNELS short
+    kernels and a synchronisation: a session can lose the first device
+    events it should record (PERF.md section 7), and these take the loss.
+    Returns fn's wall ms, then the device busy ms and ms and count by op
+    of the events after the pad, and how many pad kernels were recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     busy, per_op = device_busy(prof)
+    pad = 0
+    for key in [key for key in per_op if PAD_KEY in key]:
+        ms, count = per_op.pop(key)
+        busy -= ms
+        pad += count
+    return wall, busy, per_op, pad
+
+
+def profiled(torch, label: str, fn) -> None:
+    """Run ``fn`` once under ``torch.profiler``: wall, device busy and
+    idle share, and the device ops that take most of the time."""
+    wall, busy, per_op, _ = session(torch, fn)
     log(f"  profiled {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms "
         f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %)")
     for key, (ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]:
@@ -849,84 +981,161 @@ def serve_run(torch, ops, cfg, params, seed: int) -> dict:
     return res
 
 
-def lm_phase(torch, ops, dev, seed: int) -> dict:
-    from repro_torch.configs import get
+def load_model(torch, cfg, dev, seed: int):
+    """Random weights of ``cfg`` drawn on the card from ``seed``."""
     from repro_torch.models import lm
 
-    log("phase 6: LM path at full width (random weights)")
-    out = {}
-    # --- Qwen3-14B: prefill, then serve
-    cfg = get("qwen3-14b")
-    torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}) drawn on the card in "
-        f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
-    toks = torch.as_tensor(np.random.default_rng(seed).integers(0, cfg.vocab, (1, PREFILL_LEN)),
-                           device=dev)
+    log(f"  {cfg.name} ({cfg.n_layers} layers): {n_params} parameters ({cfg.param_dtype}) drawn "
+        f"on the card in {time.perf_counter() - t:.3f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    return params, n_params
+
+
+def model_inputs(torch, cfg, dev, B: int, S: int, seed: int) -> dict:
+    """A batch of ``cfg``'s inputs from ``seed``: tokens, or frame
+    embeddings where the model takes no tokens, and the image embeddings
+    of a cross-attention model."""
+    rng = np.random.default_rng(seed)
+    dt = getattr(torch, cfg.compute_dtype)
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=dev)
+    else:
+        batch["embeddings"] = torch.as_tensor(rng.normal(size=(B, S, cfg.d_model)),
+                                              device=dev).to(dt)
+    if cfg.cross_attn_every:
+        batch["img_embed"] = torch.as_tensor(rng.normal(size=(B, cfg.n_img_tokens, cfg.d_model)),
+                                             device=dev).to(dt)
+    return batch
+
+
+def attention_layers(cfg) -> int:
+    """Layers with attention: all but the Mamba2 hybrid's, whose one shared
+    block runs once every ``attn_every`` layers."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "mamba_hybrid" else cfg.n_layers
+
+
+def prefill_run(torch, ops, cfg, params, batch) -> dict:
+    """A cold prefill whose launches must be exactly one tensor-core
+    attention launch per attention layer, three warm ones, one profiled."""
+    from repro_torch.models import lm
+
+    want = attention_layers(cfg)
     ops.reset_launches()
     t = time.perf_counter()
-    logits = lm.prefill(cfg, params, {"tokens": toks})
+    logits = lm.prefill(cfg, params, batch)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t) * 1e3
     launches = dict(ops.LAUNCHES)
-    if (launches["flash_attention_sm90"] != cfg.n_layers or launches["flash_attention"] != 0
-            or launches["wkv6"] != 0):
-        raise AssertionError(f"qwen3-14b prefill launched {launches}; wants "
-                             f"{cfg.n_layers} flash_attention_sm90 and nothing else")
+    if launches["flash_attention_sm90"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"{cfg.name} prefill launched {launches}; wants "
+                             f"{want} flash_attention_sm90 and nothing else")
     if logits.shape != (1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"qwen3-14b prefill logits: {tuple(logits.shape)}, not all finite")
+        raise AssertionError(f"{cfg.name} prefill logits: {tuple(logits.shape)}, not all finite")
     warm = []
     for _ in range(3):
         t = time.perf_counter()
-        lm.prefill(cfg, params, {"tokens": toks})
+        lm.prefill(cfg, params, batch)
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t) * 1e3)
-    prefill = dict(seq=PREFILL_LEN, cold_ms=cold_ms, warm_ms_median=float(np.median(warm)),
-                   warm_ms=warm, tokens_per_s=PREFILL_LEN / (np.median(warm) / 1e3),
-                   launches=launches)
-    log(f"  {cfg.name} prefill: {json.dumps(prefill)}")
-    profiled(torch, f"{cfg.name} prefill S={PREFILL_LEN}",
-             lambda: lm.prefill(cfg, params, {"tokens": toks}))
-    serve = serve_run(torch, ops, cfg, params, seed)
-    if sum(serve["launches"].values()) != 0:
-        raise AssertionError(f"qwen3-14b decode launched {serve['launches']}: its "
-                             "attention is the plain masked one")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  {cfg.name}: peak device memory {peak:.3f} GB")
-    out[cfg.name] = dict(prefill=prefill, serve=serve, peak_gb=peak, params=n_params)
-    del params, logits
-    torch.cuda.empty_cache()
+    seq = next(iter(batch.values())).shape[1]
+    res = dict(seq=seq, cold_ms=cold_ms, warm_ms_median=float(np.median(warm)), warm_ms=warm,
+               tokens_per_s=seq / (np.median(warm) / 1e3), launches=launches)
+    log(f"  {cfg.name} prefill: {json.dumps(res)}")
+    profiled(torch, f"{cfg.name} prefill S={seq}", lambda: lm.prefill(cfg, params, batch))
+    return res
 
-    # --- RWKV6-7B: serve
-    cfg = get("rwkv6-7b")
-    torch.cuda.reset_peak_memory_stats()
+
+def embed_decode_run(torch, ops, cfg, params, dev, seed: int) -> dict:
+    """A model that takes frame embeddings, which no engine feeds:
+    ``EMBED_STEPS`` decode steps at ``EMBED_BATCH`` through
+    ``lm.decode_step`` (each ends in the argmax's copy to the host, as an
+    engine step does), with the launch counts zeroed just before."""
+    from repro_torch.models import lm
+
+    state = lm.init_decode_state(cfg, EMBED_BATCH, MAX_LEN, device=dev)
+    frames = model_inputs(torch, cfg, dev, EMBED_BATCH, EMBED_STEPS + 4, seed)["embeddings"]
+
+    def steps(lo: int, hi: int, step_ms: list):
+        nonlocal state
+        for i in range(lo, hi):
+            t = time.perf_counter()
+            logits, state = lm.decode_step(cfg, params, state, {"embeddings": frames[:, i:i + 1]})
+            nxt = torch.argmax(logits, dim=-1).cpu()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if not (bool(torch.isfinite(logits).all()) and ((nxt >= 0) & (nxt < cfg.vocab)).all()):
+                raise AssertionError(f"{cfg.name}: decode step {i} logits not finite")
+
+    step_ms = []
+    ops.reset_launches()
     t = time.perf_counter()
-    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in params.parameters())
-    log(f"  {cfg.name}: {n_params} parameters ({cfg.param_dtype}) drawn on the card in "
-        f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
-    serve = serve_run(torch, ops, cfg, params, seed)
-    want = cfg.n_layers * serve["steps"]
-    if serve["launches"]["wkv6"] != want or sum(serve["launches"].values()) != want:
-        raise AssertionError(f"rwkv6-7b serving launched {serve['launches']}; wants "
-                             f"{want} wkv6 ({cfg.n_layers} layers x {serve['steps']} steps)")
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  {cfg.name}: peak device memory {peak:.3f} GB")
-    out[cfg.name] = dict(serve=serve, peak_gb=peak, params=n_params)
-    del params
-    torch.cuda.empty_cache()
+    steps(0, EMBED_STEPS, step_ms)
+    wall = time.perf_counter() - t
+    launches = dict(ops.LAUNCHES)
+    tokens = EMBED_STEPS * EMBED_BATCH
+    res = dict(batch=EMBED_BATCH, steps=EMBED_STEPS, tokens=tokens, wall_s=wall,
+               tokens_per_s=tokens / wall, step_ms_median=float(np.median(step_ms)),
+               step_ms_min=float(np.min(step_ms)), step_ms_max=float(np.max(step_ms)),
+               launches=launches)
+    log(f"  {cfg.name} decode steps: {json.dumps(res)}")
+    profiled(torch, f"{cfg.name} decode (4 steps at B={EMBED_BATCH})",
+             lambda: steps(EMBED_STEPS, EMBED_STEPS + 4, []))
+    return res
+
+
+def lm_phase(torch, ops, dev, seed: int) -> dict:
+    """Each served configuration in turn: Qwen3-14B and RWKV6-7B whole,
+    then NEW_LM at its depth; a prefill (none for RWKV6-7B, whose serving
+    feeds prompts through decode), then serving, or decode steps for a
+    model without token inputs."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get
+
+    log("phase 6: LM path at full width (random weights)")
+    out = {}
+    for arch, depth in {"qwen3-14b": None, "rwkv6-7b": None, **NEW_LM}.items():
+        cfg = get(arch)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        params, n_params = load_model(torch, cfg, dev, seed)
+        run = dict(params=n_params, layers=cfg.n_layers)
+        if cfg.family != "rwkv6":
+            run["prefill"] = prefill_run(torch, ops, cfg, params,
+                                         model_inputs(torch, cfg, dev, 1, PREFILL_LEN, seed))
+        if cfg.embed_inputs:
+            run["serve"] = serve_run(torch, ops, cfg, params, seed)
+        else:
+            run["serve"] = embed_decode_run(torch, ops, cfg, params, dev, seed)
+        launches = run["serve"]["launches"]
+        # decode attention is the plain masked one; only RWKV6's WKV is a kernel
+        want = cfg.n_layers * run["serve"]["steps"] if cfg.family == "rwkv6" else 0
+        if launches["wkv6"] != want or sum(launches.values()) != want:
+            raise AssertionError(f"{arch} decode launched {launches}; wants {want} wkv6 "
+                                 "and nothing else")
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {cfg.name} ({cfg.n_layers} layers): peak device memory {run['peak_gb']:.3f} GB")
+        out[arch] = run
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
 def lm_check_phase(torch, ops, dev) -> dict:
     """Reduced float32 configs with the same weights on the card and the
-    CPU: prefill logits within LM_CHECK_TOL, served tokens equal.  Each
-    card prefill must launch its model's f32 kernel once per layer and
-    nothing else; returns those launch counts by arch."""
+    CPU (the vision model's cross-attention gates opened to CROSS_GATE in
+    both): prefill logits within LM_CHECK_TOL, served tokens equal (a
+    model without token inputs: four decode steps' logits).  Each card
+    prefill must launch its model's f32 kernel once per attention layer
+    (K5 once per layer) and nothing else; returns those launch counts by
+    arch."""
     import copy
 
     from repro_torch.configs import get
@@ -936,32 +1145,54 @@ def lm_check_phase(torch, ops, dev) -> dict:
 
     log(f"phase 7: LM path, card vs CPU (reduced float32 configs, logits within {LM_CHECK_TOL})")
     out = {}
-    for arch, over, kernel in (("qwen3-14b", {"n_kv_heads": 2}, "flash_attention"),
-                               ("rwkv6-7b", {}, "wkv6")):
+    for arch, over in (("qwen3-14b", {"n_kv_heads": 2}), ("rwkv6-7b", {}), ("dbrx-132b", {}),
+                       ("kimi-k2-1t-a32b", {}), ("zamba2-2.7b", {}),
+                       ("llama-3.2-vision-90b", {}), ("musicgen-medium", {})):
         cfg = reduced(get(arch), **over)
+        kernel, want_launches = (("wkv6", cfg.n_layers) if cfg.family == "rwkv6"
+                                 else ("flash_attention", attention_layers(cfg)))
         cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
+        for block in (cpu["cross_blocks"] if "cross_blocks" in cpu else []):
+            block["attn"]["gate"].fill_(CROSS_GATE)
         card = copy.deepcopy(cpu).to(dev)  # Module.to moves in place
-        toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 128)))
+        batch = model_inputs(torch, cfg, "cpu", 2, 128, 2)
         ops.reset_launches()
-        got = lm.prefill(cfg, card, {"tokens": toks.to(dev)}).cpu()
+        got = lm.prefill(cfg, card, {name: t.to(dev) for name, t in batch.items()}).cpu()
         launched = dict(ops.LAUNCHES)
-        want = lm.prefill(cfg, cpu, {"tokens": toks})
-        err = max_abs_err(torch, got, want)
+        want = lm.prefill(cfg, cpu, batch)
+        errs = [max_abs_err(torch, got, want)]
         ok = bool(torch.allclose(got, want, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL))
         outs = []
         for params in (card, cpu):
-            reqs = [Request(rid=i, prompt=np.random.default_rng(i).integers(0, cfg.vocab, 3 + i)
-                            .astype(np.int32), max_new=6) for i in range(5)]
-            ServeEngine(cfg, params, batch_slots=2, max_len=32).run(reqs)
-            outs.append([r.out for r in reqs])
-        same = outs[0] == outs[1]
-        log(f"  {cfg.name} reduced: prefill launches {launched}, logits max_abs_err {err!r} "
-            f"{'ok' if ok else 'MISMATCH'}; served tokens {'equal' if same else 'DIFFER'}")
+            if cfg.embed_inputs:
+                reqs = [Request(rid=i, prompt=np.random.default_rng(i).integers(0, cfg.vocab, 3 + i)
+                                .astype(np.int32), max_new=6) for i in range(5)]
+                ServeEngine(cfg, params, batch_slots=2, max_len=32).run(reqs)
+                outs.append([r.out for r in reqs])
+            else:  # four decode steps on frame embeddings
+                pdev = params["lm_head"].device
+                state = lm.init_decode_state(cfg, 2, 32, device=pdev)
+                frames = batch["embeddings"].to(pdev)
+                logits = []
+                for i in range(4):
+                    lo, state = lm.decode_step(cfg, params, state,
+                                               {"embeddings": frames[:, i:i + 1]})
+                    logits.append(lo.cpu())
+                outs.append(logits)
+        if cfg.embed_inputs:
+            same, what = outs[0] == outs[1], "served tokens"
+        else:
+            errs += [max_abs_err(torch, a, b) for a, b in zip(*outs)]
+            same = all(torch.allclose(a, b, rtol=LM_CHECK_TOL, atol=LM_CHECK_TOL)
+                       for a, b in zip(*outs))
+            what = "decode-step logits"
+        log(f"  {cfg.name} reduced: prefill launches {launched}, logits max_abs_err {max(errs)!r} "
+            f"{'ok' if ok else 'MISMATCH'}; {what} {'equal' if same else 'DIFFER'}")
         if not (ok and same):
             raise AssertionError(f"{cfg.name}: the card disagrees with the CPU on the LM path")
-        if launched[kernel] != cfg.n_layers or sum(launched.values()) != cfg.n_layers:
+        if launched[kernel] != want_launches or sum(launched.values()) != want_launches:
             raise AssertionError(f"{cfg.name} reduced f32 prefill launched {launched}; wants "
-                                 f"{cfg.n_layers} {kernel}")
+                                 f"{want_launches} {kernel}")
         out[arch] = launched
     return out
 
@@ -982,47 +1213,78 @@ def run_queries(torch, QF, frames, sf: float):
     return results, ms
 
 
-def profile_pass(torch, QF, frames, sf: float) -> None:
-    """One more warm pass of the 22 queries, each under its own
-    ``torch.profiler`` context: per query the wall time and the device
-    busy time (the sum of the self time of every device-side event:
-    kernels, copies, memsets), then the device ops that take most of it
-    over the pass.  The profiler adds host cost of its own, so these wall
-    times are not the warm times of phase 3."""
-    from torch.profiler import ProfilerActivity, profile
+#: device-side names of the ported kernels that the TPC-H path launches
+PASS_KERNELS = {"segment_sum": ("segment_sum_",),
+                "substr_find": ("substr_find_rows", "exists_before_rows")}
 
-    log("phase 3b: profiled warm pass (per query: traced wall, device busy)")
+
+def profile_pass(torch, ops, QF, frames, sf: float) -> dict:
+    """One more warm pass of the 22 queries, each under its own
+    ``torch.profiler`` context: per query the wall time, the device busy
+    time (the sum of the self time of every device-side event: kernels,
+    copies, memsets), and each ported kernel's launches (the ``LAUNCHES``
+    delta) and device time; then the device ops that take most of it over
+    the pass.  Each session opens with the pad kernels of ``session``; one
+    in which a kernel the query launched still shows no device time is
+    taken again, up to PROFILE_TRIES sessions, and the phase fails if none
+    shows it.  The profiler adds host cost of its own, so these wall times
+    are not the warm times of phase 3."""
+    log("phase 3b: profiled warm pass (per query: traced wall, device busy, ported kernels)")
     per_op: dict = {}
     walls, busies = [], []
-    t0 = time.perf_counter()
+    launched = {name: 0 for name in PASS_KERNELS}
+    kernel_ms = {name: 0.0 for name in PASS_KERNELS}
+    retried, pad_lost = 0, []
     for q in sorted(QF.ALL, key=lambda s: int(s[1:])):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            QF.ALL[q](frames, sf=sf, apply_limit=False)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        busy, ops_here = device_busy(prof)
+        for attempt in range(1, PROFILE_TRIES + 1):
+            before = dict(ops.LAUNCHES)
+            t_session = time.perf_counter()
+            wall, busy, ops_here, pad = session(
+                torch, lambda: QF.ALL[q](frames, sf=sf, apply_limit=False))
+            session_s = time.perf_counter() - t_session
+            if pad < PAD_KERNELS:
+                pad_lost.append(f"{q}: {PAD_KERNELS - pad}")
+            here = {name: ops.LAUNCHES[name] - before[name] for name in PASS_KERNELS}
+            ms_here = {name: sum(ms for key, (ms, _) in ops_here.items()
+                                 if any(k in key for k in keys))
+                       for name, keys in PASS_KERNELS.items()}
+            missing = [name for name in PASS_KERNELS if here[name] and not ms_here[name]]
+            if not missing:
+                break
+            retried += 1
+            log(f"  {q}: profiler session {attempt} of {PROFILE_TRIES} recorded no device time "
+                f"for {missing}, launched {here} (device busy {busy:.3f} ms over "
+                f"{len(ops_here)} device ops)")
+        else:
+            raise AssertionError(f"{q}: {PROFILE_TRIES} profiler sessions recorded no device time "
+                                 f"for {missing}, which it launched")
         for key, (ms, count) in ops_here.items():
             acc = per_op.setdefault(key, [0.0, 0])
             acc[0] += ms
             acc[1] += count
+        for name in PASS_KERNELS:
+            launched[name] += here[name]
+            kernel_ms[name] += ms_here[name]
         walls.append(wall)
         busies.append(busy)
-        log(f"  {q}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.3f} %)")
-        if time.perf_counter() - t0 > PROFILE_BUDGET_S:
-            log(f"  stopped after {q}: profiling budget of {PROFILE_BUDGET_S} s spent")
-            break
+        log(f"  {q}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.3f} %); "
+            f"ported launches {json.dumps(here)}, their device ms {json.dumps(ms_here)}; "
+            f"session {session_s:.3f} s")
     wall, busy = sum(walls), sum(busies)
-    ported = {
-        name: sum(ms for key, (ms, _) in per_op.items() if any(k in key for k in keys))
-        for name, keys in (("segment_sum", ("segment_sum",)),
-                           ("substr_find", ("substr_find_rows", "exists_before_rows")))
-    }
+    idle = [name for name, n in launched.items() if n == 0]
+    if idle:
+        raise AssertionError(f"the profiled pass launched no {idle}")
     log(f"  all profiled queries: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-        f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %)")
-    log(f"  ported kernels' device ms: {json.dumps(ported)}")
+        f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %); "
+        f"sessions taken again: {retried}; sessions that lost pad kernels (of "
+        f"{PAD_KERNELS}): {len(pad_lost)} {json.dumps(pad_lost)}")
+    share = {name: 100 * ms / busy for name, ms in kernel_ms.items()}
+    log(f"  ported kernels in the pass: launches {json.dumps(launched)}, device ms "
+        f"{json.dumps(kernel_ms)}, % of device busy {json.dumps(share)}")
     for key, (ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"  {ms:.3f} ms  {count} x {key[:100]}")
+    return dict(wall_ms=wall, busy_ms=busy, launches=launched, device_ms=kernel_ms,
+                retried=retried, pad_lost=pad_lost)
 
 
 def host_profile(torch, QF, frames, sf: float, queries) -> None:
@@ -1156,7 +1418,8 @@ def main() -> int:
     missing = [name for name in ("segment_sum", "substr_find") if launches[name] == 0]
     if missing:
         raise AssertionError(f"main path never launched {missing}")
-    profile_pass(torch, QF, frames, args.sf)
+    shapes["segment_sum"] += mid_path_rows(torch, seg, ops, QF, frames, args.sf, dev)
+    profile_pass(torch, ops, QF, frames, args.sf)
     host_profile(torch, QF, frames, args.sf, sorted(ms2, key=ms2.get, reverse=True)[:3])
     del frames, tables, res1, res2
     torch.cuda.empty_cache()
@@ -1184,6 +1447,10 @@ def main() -> int:
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
     launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
     shapes.update(lm_shapes)
+    for arch, run in lm_runs.items():
+        if "prefill" in run:
+            log(f"flash_attention_sm90 launches in one {arch} prefill ({run['layers']} "
+                f"layers): {run['prefill']['launches']['flash_attention_sm90']}")
 
     # phase 5: report
     sources = {
@@ -1210,7 +1477,8 @@ def main() -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
-            # K1's q1 shapes, K5's prefill shape (0 launches on the serving path)
+            # K1's q1 shapes and its mid path, K4's later families' shapes,
+            # K5's prefill shape (0 launches on the serving path)
             "other_shapes": [{key: r[key] for key in timed} for r in rows[1:]],
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]

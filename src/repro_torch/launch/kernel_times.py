@@ -1,5 +1,5 @@
-"""Time K1, K2, K5 and RWKV6-7B's decode step on the card through the
-public API, and print one JSON line.
+"""Time K1, K2, K5, RWKV6-7B's decode step and Qwen3-14B's prefill and
+decode step on the card through the public API, and print one JSON line.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_times.py
     PYTHONPATH=<other checkout>/src python3 src/repro_torch/launch/kernel_times.py
@@ -26,7 +26,13 @@ call (strided views, the state written over itself).
   u, float32 state);
 * RWKV6-7B at full width with random bf16 weights: 16 requests over 4
   slots, the median decode step (host clock; each step ends in the
-  argmax's copy to the host).
+  argmax's copy to the host);
+* Qwen3-14B at full width with random bf16 weights: the median of 3
+  warm 4096-token prefills at B 1 and the median decode step of 8
+  requests over 4 slots;
+* for both models, the host work of one ``lm.decode_step`` at 4 slots:
+  the ATen ops it dispatches and the Python calls it makes, which do not
+  vary from run to run as the step's host time does.
 
 Times: CUDA events over warm calls, ms per call.  Needs a CUDA device.
 """
@@ -55,6 +61,56 @@ def event_ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def serve_step_ms(cfg, params, n_requests: int, Request, ServeEngine) -> list:
+    """Host ms of each decode step of ``n_requests`` requests over 4 slots
+    (prompts of 3 to 12 tokens, 8 new tokens each); the second of two
+    runs, as the first warms the allocator."""
+    for _ in range(2):
+        eng = ServeEngine(cfg, params, batch_slots=4, max_len=256)
+        step_ms = []
+        step = eng.step
+
+        def timed_step():
+            t = time.perf_counter()
+            step()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+
+        eng.step = timed_step
+        req_rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=req_rng.integers(0, cfg.vocab, req_rng.integers(3, 13))
+                        .astype(np.int32), max_new=8) for i in range(n_requests)]
+        eng.run(reqs)
+    return step_ms
+
+
+def step_host_work(lm, cfg, params, dev) -> tuple:
+    """(ATen ops dispatched, Python calls made) by one decode step at 4
+    slots, after a first step."""
+    import cProfile
+    import pstats
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    state = lm.init_decode_state(cfg, 4, 256, device=dev)
+    batch = {"tokens": torch.zeros((4, 1), dtype=torch.long, device=dev),
+             "kv_start": torch.zeros(4, dtype=torch.int32, device=dev)}
+    _, state = lm.decode_step(cfg, params, state, batch)
+    with Count():
+        _, state = lm.decode_step(cfg, params, state, batch)
+    prof = cProfile.Profile()
+    prof.enable()
+    lm.decode_step(cfg, params, state, batch)
+    prof.disable()
+    return Count.n, sum(stat[1] for stat in pstats.Stats(prof).stats.values())
 
 
 def main() -> int:
@@ -115,24 +171,30 @@ def main() -> int:
     # RWKV6-7B decode
     cfg = get("rwkv6-7b")
     params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
-    for _ in range(2):  # the first run warms the allocator
-        eng = ServeEngine(cfg, params, batch_slots=4, max_len=256)
-        step_ms = []
-        step = eng.step
-
-        def timed_step():
-            t = time.perf_counter()
-            step()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-
-        eng.step = timed_step
-        req_rng = np.random.default_rng(0)
-        reqs = [Request(rid=i, prompt=req_rng.integers(0, cfg.vocab, req_rng.integers(3, 13))
-                        .astype(np.int32), max_new=8) for i in range(16)]
-        eng.run(reqs)
+    step_ms = serve_step_ms(cfg, params, 16, Request, ServeEngine)
     out["rwkv6_steps"] = len(step_ms)
     out["rwkv6_step_ms_median"] = float(np.median(step_ms))
     out["rwkv6_step_ms_min"] = float(np.min(step_ms))
+    out["rwkv6_step_aten_ops"], out["rwkv6_step_python_calls"] = step_host_work(
+        lm, cfg, params, dev)
+    del params
+
+    # Qwen3-14B prefill and decode
+    cfg = get("qwen3-14b")
+    params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (1, 4096)), device=dev)
+    prefill_ms = []
+    for _ in range(4):  # the first is cold
+        t = time.perf_counter()
+        lm.prefill(cfg, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t) * 1e3)
+    out["qwen3_prefill_ms_median"] = float(np.median(prefill_ms[1:]))
+    step_ms = serve_step_ms(cfg, params, 8, Request, ServeEngine)
+    out["qwen3_steps"] = len(step_ms)
+    out["qwen3_step_ms_median"] = float(np.median(step_ms))
+    out["qwen3_step_aten_ops"], out["qwen3_step_python_calls"] = step_host_work(
+        lm, cfg, params, dev)
     print(json.dumps(out))
     return 0
 

@@ -3,6 +3,10 @@ config, on the CUDA card unless ``--device cpu``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --requests 16 --slots 4 --device cpu
+
+``--arch`` takes every registered config with token inputs.
+``musicgen-medium`` takes frame embeddings, which no engine feeds: drive
+it through ``lm.prefill`` and ``lm.decode_step`` with ``embeddings``.
 """
 from __future__ import annotations
 
@@ -15,8 +19,11 @@ import torch
 
 
 def main(argv: Optional[List[str]] = None) -> List:
+    from repro_torch.configs import ARCHS, get
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--arch", default="phi3-mini-3.8b",
+                    choices=[a for a in ARCHS if get(a).embed_inputs])
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=8)
@@ -25,7 +32,6 @@ def main(argv: Optional[List[str]] = None) -> List:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import get
     from repro_torch.core.config import resolve_device
     from repro_torch.models import lm
     from repro_torch.models.config import reduced

@@ -1,16 +1,14 @@
-"""Model facade: init / forward / prefill / decode for the dense and
-RWKV6 families, a Python loop over layers where the JAX package scans
-over stacked layer parameters.
+"""Model facade: init / forward / prefill / decode for every family of
+the JAX package (dense, MoE, RWKV6, the Mamba2 hybrid, cross-attention
+layers, embedding inputs), a Python loop over layers where the JAX
+package scans over stacked layer parameters.
 
 Mirrors ``repro/models/lm.py``.  Weights live in a ``Params`` module:
-one sub-module per block (``params["blocks"][i]``), every weight a
-frozen parameter under the reference's name.  ``load_reference_params``
-carries the JAX package's parameter pytree over, so both packages
-compute the same logits from the same weights.
-
-Families and features of the JAX package that are not ported yet
-(``moe``, ``mamba_hybrid``, ``cross_attn_every``, ``embed_inputs=False``)
-raise ``NotImplementedError``; ROADMAP.md queues them under M11.
+one sub-module per block (``params["blocks"][i]``, and
+``params["cross_blocks"][i]``), every weight a frozen parameter under the
+reference's name.  ``load_reference_params`` carries the JAX package's
+parameter pytree over, so both packages compute the same logits from the
+same weights.
 """
 from __future__ import annotations
 
@@ -21,7 +19,7 @@ import torch
 from torch import nn
 
 from ..core.config import resolve_device
-from . import layers, rwkv
+from . import layers, mamba, rwkv
 from .config import ModelConfig
 from .layers import cdtype
 
@@ -45,22 +43,8 @@ class Params(nn.Module):
     def __getitem__(self, name: str):
         return getattr(self, name)
 
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a family or feature this slice of the port lacks."""
-    missing = []
-    if cfg.family not in ("dense", "rwkv6"):
-        missing.append(f"family {cfg.family!r}")
-    if cfg.moe is not None:
-        missing.append("the MoE FFN")
-    if cfg.cross_attn_every:
-        missing.append("cross-attention layers")
-    if not cfg.embed_inputs:
-        missing.append("embed_inputs=False")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (ROADMAP.md, M11)"
-        )
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
 
 
 # ----------------------------------------------------------------------
@@ -76,7 +60,6 @@ def init_params(
     that device; none means one seeded with 0.  Its numbers differ from
     ``jax.random``'s: carry the JAX package's weights over with
     ``load_reference_params`` to compare the two."""
-    check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
@@ -89,23 +72,41 @@ def _init_tree(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     pd = layers.pdtype(cfg)
     D, V = cfg.d_model, cfg.vocab
     dev = gen.device
+    ones = lambda: torch.ones((D,), dtype=pd, device=dev)
     p: Dict = {
-        "final_norm": torch.ones((D,), dtype=pd, device=dev),
+        "final_norm": ones(),
         "lm_head": layers.normal(gen, (D, V), 1.0 / np.sqrt(D), pd),
-        "embed": layers.normal(gen, (V, D), 0.02, pd),
     }
+    if cfg.embed_inputs:
+        p["embed"] = layers.normal(gen, (V, D), 0.02, pd)
     if cfg.family == "rwkv6":
         p["blocks"] = [rwkv.init_rwkv_block(gen, cfg) for _ in range(cfg.n_layers)]
         return p
-    p["blocks"] = [
-        {
-            "norm1": torch.ones((D,), dtype=pd, device=dev),
-            "attn": layers.init_attention(gen, cfg),
-            "norm2": torch.ones((D,), dtype=pd, device=dev),
-            "mlp": layers.init_mlp(gen, cfg),
-        }
-        for _ in range(cfg.n_layers)
-    ]
+    if cfg.family == "mamba_hybrid":
+        p["blocks"] = [mamba.init_mamba_block(gen, cfg) for _ in range(cfg.n_layers)]
+        # ONE shared attention+MLP block, reused every attn_every layers
+        p["shared_attn"] = {"norm1": ones(), "attn": layers.init_attention(gen, cfg),
+                            "norm2": ones(), "mlp": layers.init_mlp(gen, cfg)}
+        return p
+
+    def init_block():
+        blk = {"norm1": ones(), "attn": layers.init_attention(gen, cfg), "norm2": ones()}
+        if cfg.moe:
+            blk["moe"] = layers.init_moe(gen, cfg)
+        else:
+            blk["mlp"] = layers.init_mlp(gen, cfg)
+        return blk
+
+    if cfg.cross_attn_every:
+        n_cross = cfg.n_layers // cfg.cross_attn_every
+        p["blocks"] = [init_block() for _ in range(cfg.n_layers - n_cross)]
+        p["cross_blocks"] = [
+            {"norm1": ones(), "attn": layers.init_attention(gen, cfg, cross=True),
+             "norm2": ones(), "mlp": layers.init_mlp(gen, cfg)}
+            for _ in range(n_cross)
+        ]
+        return p
+    p["blocks"] = [init_block() for _ in range(cfg.n_layers)]
     return p
 
 
@@ -114,9 +115,9 @@ def load_reference_params(
 ) -> Params:
     """The port's weights from the JAX package's parameter pytree, given
     as numpy arrays (``jax.tree.map(np.asarray, params)``).  The leading
-    layer axis of ``tree["blocks"]`` is unstacked into one module per
-    block; dtypes are kept."""
-    check_supported(cfg)
+    layer axis of ``tree["blocks"]`` and ``tree["cross_blocks"]`` is
+    unstacked into one module per block (``shared_attn``, one block
+    reused, stays as it is); dtypes are kept."""
     dev = resolve_device(device)
 
     def to_torch(val):
@@ -127,10 +128,21 @@ def load_reference_params(
             return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(dev)
         return torch.from_numpy(np.array(arr)).to(dev)
 
-    out = {name: to_torch(val) for name, val in tree.items() if name != "blocks"}
-    stacked = to_torch(tree["blocks"])
-    out["blocks"] = [_take_layer(stacked, i) for i in range(cfg.n_layers)]
+    out = {}
+    for name, val in tree.items():
+        out[name] = to_torch(val)
+        if name in ("blocks", "cross_blocks"):
+            n = len(next(iter(_leaves(out[name]))))
+            out[name] = [_take_layer(out[name], i) for i in range(n)]
     return Params(out)
+
+
+def _leaves(tree: Mapping):
+    for val in tree.values():
+        if isinstance(val, Mapping):
+            yield from _leaves(val)
+        else:
+            yield val
 
 
 def _take_layer(tree: Mapping, i: int) -> Dict:
@@ -143,12 +155,34 @@ def _take_layer(tree: Mapping, i: int) -> Dict:
 # ----------------------------------------------------------------------
 # forward (train / prefill)
 # ----------------------------------------------------------------------
+def _ffn(cfg: ModelConfig, bp, xn):
+    if "moe" in bp:
+        return layers.moe_ffn(bp["moe"], cfg, xn)
+    return layers.mlp(bp["mlp"], cfg, xn)
+
+
 def _self_block(cfg: ModelConfig, x, bp, positions):
     h, _ = layers.attention(
         bp["attn"], cfg, layers.rms_norm(x, bp["norm1"], cfg.norm_eps), positions
     )
     x = x + h
+    return x + _ffn(cfg, bp, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+
+
+def _cross_block(cfg: ModelConfig, x, bp, img):
+    h, _ = layers.attention(
+        bp["attn"], cfg, layers.rms_norm(x, bp["norm1"], cfg.norm_eps),
+        positions=None, kv_x=img, causal=False,
+    )
+    x = x + h
     return x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+
+
+def _inputs(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]):
+    dt = cdtype(cfg)
+    if cfg.embed_inputs:
+        return params["embed"].to(dt)[batch["tokens"]]
+    return batch["embeddings"].to(dt)
 
 
 def forward(
@@ -157,17 +191,33 @@ def forward(
     batch: Mapping[str, torch.Tensor],
     return_hidden: bool = False,
 ) -> torch.Tensor:
-    """batch: {'tokens' (B,S)}.  Returns logits (B, S, V) in f32 (or the
-    final hidden states)."""
-    check_supported(cfg)
+    """batch: {'tokens' (B,S) | 'embeddings' (B,S,D)} [+ 'img_embed'
+    (B,n_img_tokens,D)].  Returns logits (B, S, V) in f32 (or the final
+    hidden states)."""
     dt = cdtype(cfg)
-    x = params["embed"].to(dt)[batch["tokens"]]
+    x = _inputs(cfg, params, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int64, device=x.device).expand(B, S)
-    for bp in params["blocks"]:
-        if cfg.family == "rwkv6":
+    blocks = params["blocks"]
+    if cfg.family == "rwkv6":
+        for bp in blocks:
             x, _ = rwkv.rwkv_block(bp, cfg, x)
-        else:
+    elif cfg.family == "mamba_hybrid":
+        sp = params["shared_attn"]
+        for i, bp in enumerate(blocks):
+            x, _ = mamba.mamba_block(bp, cfg, x)
+            if (i + 1) % cfg.attn_every == 0:
+                # the shared attention block (same params every group)
+                x = _self_block(cfg, x, sp, positions)
+    elif cfg.cross_attn_every:
+        img = batch["img_embed"].to(dt)
+        per = cfg.cross_attn_every - 1
+        for g, cp in enumerate(params["cross_blocks"]):
+            for bp in blocks[g * per:(g + 1) * per]:
+                x = _self_block(cfg, x, bp, positions)
+            x = _cross_block(cfg, x, cp, img)
+    else:
+        for bp in blocks:
             x = _self_block(cfg, x, bp, positions)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
@@ -193,27 +243,43 @@ def init_decode_state(
     max_len: int,
     device: Optional[Union[str, torch.device]] = None,
 ) -> Dict:
-    """Zero caches (dense) or recurrent state (rwkv6), stacked over layers
-    as in the JAX package; ``pos`` is a host int."""
-    check_supported(cfg)
+    """Zero caches and recurrent state, stacked over layers as in the JAX
+    package; ``pos`` is a host int."""
     dev = resolve_device(device)
     dt = cdtype(cfg)
     L, D = cfg.n_layers, cfg.d_model
+    zeros = lambda *shape, dtype=dt: torch.zeros(shape, dtype=dtype, device=dev)
     if cfg.family == "rwkv6":
         H = cfg.n_heads
         hd = D // H
         return {
-            "S": torch.zeros((L, batch_size, H, hd, hd), dtype=torch.float32, device=dev),
-            "tm_prev": torch.zeros((L, batch_size, 1, D), dtype=dt, device=dev),
-            "cm_prev": torch.zeros((L, batch_size, 1, D), dtype=dt, device=dev),
+            "S": zeros(L, batch_size, H, hd, hd, dtype=torch.float32),
+            "tm_prev": zeros(L, batch_size, 1, D),
+            "cm_prev": zeros(L, batch_size, 1, D),
             "pos": 0,
         }
-    shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=dt, device=dev),
-        "v": torch.zeros(shape, dtype=dt, device=dev),
-        "pos": 0,
-    }
+    kv = (batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+    if cfg.family == "mamba_hybrid":
+        groups = L // cfg.attn_every
+        return {
+            "h": zeros(L, batch_size, cfg.ssm_heads or cfg.n_heads, cfg.ssm_head_dim,
+                       cfg.ssm_state, dtype=torch.float32),
+            "k": zeros(groups, *kv),
+            "v": zeros(groups, *kv),
+            "pos": 0,
+        }
+    state = {"k": zeros(L, *kv), "v": zeros(L, *kv), "pos": 0}
+    if cfg.cross_attn_every:
+        n_cross = L // cfg.cross_attn_every
+        img = (batch_size, cfg.n_img_tokens, cfg.n_kv_heads, cfg.hd)
+        # as in the JAX package, no function fills these: decode
+        # cross-attention reads zeros
+        state["xk"] = zeros(n_cross, *img)
+        state["xv"] = zeros(n_cross, *img)
+        # self-attn cache excludes cross layers
+        state["k"] = zeros(L - n_cross, *kv)
+        state["v"] = zeros(L - n_cross, *kv)
+    return state
 
 
 def decode_step(
@@ -222,15 +288,18 @@ def decode_step(
     state: Dict,
     batch: Mapping[str, torch.Tensor],
 ) -> Tuple[torch.Tensor, Dict]:
-    """batch: {'tokens' (B,1)} [+ 'kv_start' (B,)].  Returns (logits
-    (B, V) f32, new state).  The state's tensors are updated in place and
-    shared with the new state, whose ``pos`` is one more."""
-    check_supported(cfg)
+    """batch: {'tokens' (B,1) | 'embeddings' (B,1,D)} [+ 'kv_start' (B,)].
+    Returns (logits (B, V) f32, new state).  The state's tensors are
+    updated in place and shared with the new state, whose ``pos`` is one
+    more.  As in the JAX package, only the dense and MoE stacks read
+    ``kv_start``: a refilled RWKV6, Mamba2-hybrid or cross-attention slot
+    keeps the previous occupant's state and cache prefix."""
     dt = cdtype(cfg)
-    x = params["embed"].to(dt)[batch["tokens"]]
+    x = _inputs(cfg, params, batch)
     pos = int(state["pos"])
+    blocks = params["blocks"]
     if cfg.family == "rwkv6":
-        for i, bp in enumerate(params["blocks"]):
+        for i, bp in enumerate(blocks):
             S_i = state["S"][i]  # the WKV kernel writes the new state over it
             x, ns = rwkv.rwkv_block(
                 bp, cfg, x,
@@ -240,15 +309,48 @@ def decode_step(
             )
             for name in ("tm_prev", "cm_prev"):
                 state[name][i].copy_(ns[name])
+    elif cfg.family == "mamba_hybrid":
+        sp = params["shared_attn"]
+        for i, bp in enumerate(blocks):
+            x, h = mamba.mamba_block(bp, cfg, x, state=state["h"][i])
+            state["h"][i].copy_(h)
+            if (i + 1) % cfg.attn_every == 0:
+                g = i // cfg.attn_every
+                h, _, _ = layers.decode_attention(
+                    sp["attn"], cfg, layers.rms_norm(x, sp["norm1"], cfg.norm_eps),
+                    state["k"][g], state["v"][g], pos,
+                )
+                x = x + h
+                x = x + layers.mlp(sp["mlp"], cfg, layers.rms_norm(x, sp["norm2"], cfg.norm_eps))
+    elif cfg.cross_attn_every:
+        per = cfg.cross_attn_every - 1
+        for g, cp in enumerate(params["cross_blocks"]):
+            for i in range(g * per, (g + 1) * per):
+                bp = blocks[i]
+                h, _, _ = layers.decode_attention(
+                    bp["attn"], cfg, layers.rms_norm(x, bp["norm1"], cfg.norm_eps),
+                    state["k"][i], state["v"][i], pos,
+                )
+                x = x + h
+                x = x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+            h, _, _ = layers.decode_attention(
+                cp["attn"], cfg, layers.rms_norm(x, cp["norm1"], cfg.norm_eps),
+                state["xk"][g], state["xv"][g], pos, rope=False, update_cache=False,
+                kv_len=cfg.n_img_tokens, gated=True,
+            )
+            x = x + h
+            x = x + layers.mlp(cp["mlp"], cfg, layers.rms_norm(x, cp["norm2"], cfg.norm_eps))
     else:
+        # the FFN is chosen once a step, not looked up in every layer
+        ffn, ffn_name = (layers.moe_ffn, "moe") if cfg.moe else (layers.mlp, "mlp")
         kv_start = batch.get("kv_start")
-        for i, bp in enumerate(params["blocks"]):
+        for i, bp in enumerate(blocks):
             h, _, _ = layers.decode_attention(
                 bp["attn"], cfg, layers.rms_norm(x, bp["norm1"], cfg.norm_eps),
                 state["k"][i], state["v"][i], pos, kv_start=kv_start,
             )
             x = x + h
-            x = x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+            x = x + ffn(bp[ffn_name], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
     new_state = dict(state)
     new_state["pos"] = pos + 1
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -6,10 +6,12 @@ Mirrors the ``Request`` / ``ServeEngine`` part of
 pool of batch slots, prompts are fed one token per decode step, and
 finished slots are refilled between steps.  Slots advance in lockstep on
 one shared cache position; each carries a ``kv_start`` window, so a
-refilled dense slot never attends the previous occupant's cache prefix.
-As in the JAX package, an RWKV6 slot is not reset when it is refilled:
-the new request inherits the previous one's recurrent state.  The SQL
-``PreparedStatement`` of that module is not ported yet.
+refilled dense or MoE slot never attends the previous occupant's cache
+prefix.  As in the JAX package, an RWKV6, Mamba2-hybrid or
+cross-attention slot is not reset when it is refilled: the new request
+inherits the previous one's recurrent state and cache prefix.  The
+engine feeds tokens, so a model with ``embed_inputs=False`` is refused.
+The SQL ``PreparedStatement`` of that module is not ported yet.
 """
 from __future__ import annotations
 
@@ -37,6 +39,9 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: lm.Params, batch_slots: int = 4,
                  max_len: int = 128):
+        if not cfg.embed_inputs:
+            raise ValueError(f"{cfg.name} takes embeddings, not tokens: the engine feeds tokens; "
+                             "drive it through lm.prefill and lm.decode_step")
         self.cfg = cfg
         self.params = params
         self.device = params["lm_head"].device

@@ -310,6 +310,26 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, causal, B, Hq,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
+    # cross-attention: more queries than keys, no causal mask
+    (1, 8, 1, 300, 130, 128), (1, 4, 4, 129, 37, 112), (2, 8, 2, 200, 64, 80),
+])
+def test_flash_attention_kernel_non_causal_queries_past_the_keys(cuda_device, dtype, B, Hq, Hkv,
+                                                                 Sq, Sk, D):
+    rng = np.random.default_rng(Sq * Sk + D)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).to(dtype)
+    k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
+    v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
+    q = q.transpose(1, 2)
+    got = flash_attention_cuda(q, k, v, False)
+    want = flash_attention_plain(q, k, v, False)
+    tol = KERNEL_TOL[dtype][1]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="leaves queries with no key"):
+        flash_attention_cuda(q, k, v, True)
+
+
 def test_flash_attention_sm90_takes_layouts_the_copy_engine_cannot_describe(cuda_device):
     # q one element into its buffer (base not 16-byte aligned) and k with
     # a sequence stride of D + 1 elements: the wrapper copies those first
@@ -365,3 +385,34 @@ def test_lm_path_on_the_card_matches_the_cpu(cuda_device):
             ServeEngine(cfg, params, batch_slots=2, max_len=32).run(reqs)
             outs.append([r.out for r in reqs])
         assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b", "zamba2-2.7b",
+                                  "llama-3.2-vision-90b", "musicgen-medium"])
+def test_later_families_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Reduced float32 MoE, Mamba2-hybrid, cross-attention (gates opened
+    to 0.5) and embedding-input models with the same weights on both
+    devices: prefill logits within 1e-4, one f32 attention launch per
+    attention layer and nothing else."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get(arch))
+    cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
+    for block in (cpu["cross_blocks"] if "cross_blocks" in cpu else []):
+        block["attn"]["gate"].fill_(0.5)
+    card = copy.deepcopy(cpu).to(cuda_device)
+    rng = np.random.default_rng(2)
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 96)))
+    else:
+        batch["embeddings"] = torch.as_tensor(rng.normal(size=(2, 96, cfg.d_model)),
+                                              dtype=torch.float32)
+    if cfg.cross_attn_every:
+        batch["img_embed"] = torch.as_tensor(rng.normal(size=(2, cfg.n_img_tokens, cfg.d_model)),
+                                             dtype=torch.float32)
+    ops.reset_launches()
+    got = lm.prefill(cfg, card, {name: t.to(cuda_device) for name, t in batch.items()})
+    layers = cfg.n_layers // cfg.attn_every if cfg.attn_every else cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == layers == sum(ops.LAUNCHES.values())
+    want = lm.prefill(cfg, cpu, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -6,10 +6,14 @@ versions against the JAX package.
 * ``flash_attention_plain`` (K4) against ``ref.mha_reference`` and the
   Pallas kernel in interpret mode, plus ragged lengths against the
   reference alone (the Pallas kernel asserts divisibility);
-* reduced ``phi3-mini-3.8b``, ``qwen3-14b`` (GQA group 2) and
-  ``rwkv6-7b`` (2 layers, float32) with the JAX weights carried over by
-  ``load_reference_params``: ``forward`` and ``prefill`` logits and five
-  ``decode_step``s with their state.
+* every family at a reduced float32 config, with the JAX weights
+  carried over by ``load_reference_params``: ``phi3-mini-3.8b``,
+  ``qwen3-14b`` (GQA group 2), ``rwkv6-7b``, the MoE FFN (``dbrx-132b``;
+  ``kimi-k2-1t-a32b`` with a shared expert), the Mamba2 hybrid
+  (``zamba2-2.7b``), cross-attention layers (``llama-3.2-vision-90b``,
+  its gate opened to 0.5 so that the layers add something) and
+  embedding inputs (``musicgen-medium``): ``forward`` and ``prefill``
+  logits and five ``decode_step``s with their state.
 
 The CUDA kernels are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.  JAX runs with its
@@ -33,6 +37,7 @@ from repro.kernels.wkv6 import wkv6_pallas
 from repro.models import lm as jlm
 from repro.models.config import reduced as jreduced
 from repro.models.rwkv import wkv6_chunked
+from repro_torch.configs import ARCHS as TARCHS
 from repro_torch.configs import get as tget
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
@@ -45,7 +50,10 @@ from repro_torch.models.config import reduced as treduced
 # of the model comparisons (float32 sums in another order, 2 layers)
 KERNEL_TOL = {"float32": (1e-4, 2e-5), "bfloat16": (4e-2, 2e-2)}  # (wkv6, attention)
 MODEL_TOL = 1e-4
-ARCHS = ["phi3-mini-3.8b", "qwen3-14b", "rwkv6-7b"]
+ARCHS = ["phi3-mini-3.8b", "qwen3-14b", "rwkv6-7b", "dbrx-132b", "kimi-k2-1t-a32b",
+         "zamba2-2.7b", "llama-3.2-vision-90b", "musicgen-medium"]
+#: the gate the cross-attention layers are opened to (it starts at 0)
+CROSS_GATE = 0.5
 
 
 def _np(x):
@@ -236,10 +244,21 @@ def _configs(arch: str, **over):
     return jreduced(jget(arch), **over), treduced(tget(arch), **over)
 
 
+def open_cross_gates(jparams, gate: float = CROSS_GATE):
+    """The JAX weights with every cross-attention gate set to ``gate``."""
+    if "cross_blocks" not in jparams:
+        return jparams
+    out = dict(jparams, cross_blocks=dict(jparams["cross_blocks"]))
+    attn = dict(out["cross_blocks"]["attn"])
+    attn["gate"] = jnp.full_like(attn["gate"], gate)
+    out["cross_blocks"]["attn"] = attn
+    return out
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
     jcfg, tcfg = _configs(request.param)
-    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(0))
+    jparams = open_cross_gates(jlm.init_params(jcfg, jax.random.PRNGKey(0)))
     tparams = tlm.load_reference_params(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, tcfg, jparams, tparams
 
@@ -247,27 +266,57 @@ def model(request):
 def test_reduced_configs_are_the_shapes_compared(model):
     jcfg, tcfg, _, tparams = model
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    assert (tcfg.n_layers, tcfg.d_model, tcfg.compute_dtype) == (2, 64, "float32")
-    assert len(tparams["blocks"]) == 2
+    assert (tcfg.d_model, tcfg.compute_dtype) == (64, "float32")
+    n_cross = tcfg.n_layers // tcfg.cross_attn_every if tcfg.cross_attn_every else 0
+    assert tcfg.n_layers == (4 if tcfg.attn_every else 2)
+    assert len(tparams["blocks"]) == tcfg.n_layers - n_cross
+    assert ("embed" in tparams) == tcfg.embed_inputs
     if tcfg.name == "qwen3-14b":
         assert (tcfg.n_heads, tcfg.n_kv_heads, tcfg.qk_norm) == (4, 2, True)
+    if tcfg.moe:
+        moe = tparams["blocks"][0]["moe"]
+        assert moe["router"].dtype == torch.float32
+        assert moe["w_gate"].shape == (4, 64, 128) and ("shared" in moe) == bool(tcfg.moe.n_shared)
+    if tcfg.attn_every:  # one shared block, kept as it is
+        assert tparams["shared_attn"]["attn"]["wq"].shape == (64, 64)
+    if n_cross:
+        assert len(tparams["cross_blocks"]) == n_cross
+        assert float(tparams["cross_blocks"][0]["attn"]["gate"]) == CROSS_GATE
 
 
 def _tokens(cfg, B, S, seed=0):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(np.int32)
 
 
+def model_batch(cfg, B: int, S: int, seed: int = 0, img: bool = True):
+    """The same inputs for both packages, (jax batch, torch batch): tokens,
+    or frame embeddings where the model takes no tokens; with ``img`` the
+    image embeddings of a cross-attention model."""
+    rng = np.random.default_rng(seed)
+    arrs = {}
+    if cfg.embed_inputs:
+        arrs["tokens"] = _tokens(cfg, B, S, seed)
+    else:
+        arrs["embeddings"] = rng.normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    if img and cfg.cross_attn_every:
+        arrs["img_embed"] = rng.normal(size=(B, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+    tb = {name: torch.from_numpy(a).long() if name == "tokens" else torch.from_numpy(a)
+          for name, a in arrs.items()}
+    return {name: jnp.asarray(a) for name, a in arrs.items()}, tb
+
+
 def test_forward_and_prefill_logits_match(model):
     """S = 128 > q_chunk = 64, so the JAX package takes its chunked
-    attention branch; the port one K4 call.  f32 within 1e-4."""
+    attention branch; the port one K4 call (cross-attention: non-causal,
+    Sq 128 > Sk 8).  f32 within 1e-4."""
     jcfg, tcfg, jparams, tparams = model
-    toks = _tokens(tcfg, 2, 128)
-    want = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(jparams, {"tokens": jnp.asarray(toks)})
-    got = tlm.forward(tcfg, tparams, {"tokens": torch.from_numpy(toks).long()})
+    jb, tb = model_batch(tcfg, 2, 128)
+    want = jax.jit(lambda p, b: jlm.forward(jcfg, p, b))(jparams, jb)
+    got = tlm.forward(tcfg, tparams, tb)
     assert got.shape == (2, 128, tcfg.vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODEL_TOL, atol=MODEL_TOL)
-    want = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b))(jparams, {"tokens": jnp.asarray(toks)})
-    got = tlm.prefill(tcfg, tparams, {"tokens": torch.from_numpy(toks).long()})
+    want = jax.jit(lambda p, b: jlm.prefill(jcfg, p, b))(jparams, jb)
+    got = tlm.prefill(tcfg, tparams, tb)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
@@ -277,12 +326,12 @@ def test_decode_steps_match_with_their_state(model):
     jstate = jlm.init_decode_state(jcfg, B, max_len)
     tstate = tlm.init_decode_state(tcfg, B, max_len, device="cpu")
     step = jax.jit(lambda p, s, b: jlm.decode_step(jcfg, p, s, b))
-    toks = _tokens(tcfg, B, 5, seed=1)
+    jin, tin = model_batch(tcfg, B, 5, seed=1, img=False)
     start = np.array([0, 1, 2], np.int32)
     for t in range(5):
-        jb = {"tokens": jnp.asarray(toks[:, t:t + 1]), "kv_start": jnp.asarray(start)}
-        tb = {"tokens": torch.from_numpy(toks[:, t:t + 1]).long(),
-              "kv_start": torch.from_numpy(start)}
+        jb = {name: a[:, t:t + 1] for name, a in jin.items()}
+        tb = {name: a[:, t:t + 1] for name, a in tin.items()}
+        jb["kv_start"], tb["kv_start"] = jnp.asarray(start), torch.from_numpy(start)
         want, jstate = step(jparams, jstate, jb)
         got, tstate = tlm.decode_step(tcfg, tparams, tstate, tb)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=MODEL_TOL, atol=MODEL_TOL)
@@ -314,18 +363,58 @@ def test_load_reference_params_keeps_bfloat16_bits_and_unstacks_layers(arch):
         np.testing.assert_array_equal(mod.float().numpy(), stacked[i].astype(np.float32))
 
 
-@pytest.mark.parametrize("arch", [
-    "dbrx-132b",  # moe
-    "zamba2-2.7b",  # mamba_hybrid
-    "llama-3.2-vision-90b",  # cross-attention layers
-    "musicgen-medium",  # embed_inputs=False
-])
-def test_unported_families_and_features_refuse(arch):
-    cfg = treduced(tget(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, M11"):
-        tlm.init_params(cfg, torch.Generator("cpu"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tlm.init_decode_state(cfg, 2, 8, device="cpu")
+@pytest.mark.parametrize("arch", TARCHS)
+def test_every_registered_config_builds_params_and_a_decode_state(arch):
+    """Every family of the registry, reduced: the parameter tree has the
+    JAX package's names and shapes, and the decode state its arrays."""
+    jcfg, tcfg = _configs(arch)
+    tparams = tlm.init_params(tcfg, torch.Generator("cpu").manual_seed(2), device="cpu")
+    jshapes = jax.eval_shape(lambda: jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    tree = {name: _stacked_shapes(tparams[name]) for name, _ in tparams.named_children()}
+    tree.update({name: tuple(p.shape) for name, p in tparams.named_parameters(recurse=False)})
+    assert tree == jax.tree.map(lambda a: tuple(a.shape), jshapes)
+    tstate = tlm.init_decode_state(tcfg, 2, 8, device="cpu")
+    jstate = jax.eval_shape(lambda: jlm.init_decode_state(jcfg, 2, 8))
+    assert set(tstate) == set(jstate) and tstate["pos"] == 0
+    for name in set(jstate) - {"pos"}:
+        assert tuple(tstate[name].shape) == jstate[name].shape, name
+        assert not tstate[name].any()
+
+
+def _stacked_shapes(mod):
+    """Shapes of a Params subtree, a list of blocks stacked on a leading
+    axis as the JAX package stacks them."""
+    if isinstance(mod, torch.nn.ModuleList):
+        per = [_stacked_shapes(m) for m in mod]
+        return jax.tree.map(lambda *s: (len(per),) + s[0], *per,
+                            is_leaf=lambda x: isinstance(x, tuple))
+    out = {name: _stacked_shapes(m) for name, m in mod.named_children()}
+    out.update({name: tuple(p.shape) for name, p in mod.named_parameters(recurse=False)})
+    return out
+
+
+def test_normal_draws_a_large_weight_in_slices(monkeypatch):
+    """A weight is drawn in slices of about SLICE_ELEMS along its first
+    dim into the target dtype (no whole float32 temporary): a weight of
+    one slice is the whole draw; a sliced one has the shape and dtype
+    asked for, the same numbers again from the same seed, N(0, scale)."""
+    from repro_torch.models import layers as tlayers
+
+    whole = tlayers.normal(torch.Generator("cpu").manual_seed(3), (64, 96, 32), 0.5,
+                           torch.float32)
+    want = torch.randn((64, 96, 32), generator=torch.Generator("cpu").manual_seed(3)) * 0.5
+    assert torch.equal(whole, want)
+    monkeypatch.setattr(tlayers, "SLICE_ELEMS", 1000)
+    parts = tlayers.normal(torch.Generator("cpu").manual_seed(3), (64, 96, 32), 0.5,
+                           torch.float32)
+    again = tlayers.normal(torch.Generator("cpu").manual_seed(3), (64, 96, 32), 0.5,
+                           torch.float32)
+    assert parts.shape == whole.shape and torch.equal(parts, again)
+    assert abs(float(parts.mean())) < 0.01 and abs(float(parts.std()) - 0.5) < 0.01
+    rows = tlayers.normal(torch.Generator("cpu").manual_seed(3), (5, 7, 1000), 1.0,
+                          torch.bfloat16)  # one row over the limit: a row a draw
+    assert rows.dtype == torch.bfloat16 and rows.shape == (5, 7, 1000)
+    assert len({float(rows[i].float().std()) for i in range(5)}) == 5
 
 
 def test_init_params_draws_from_the_generator_on_the_asked_device():

@@ -4,10 +4,13 @@ against the JAX package's ``ServeEngine``, on the same weights
 
 Greedy tokens must be identical: both engines take the first maximum of
 float32 logits.  Every run uses more requests than slots, so slots are
-refilled: a dense slot starts a new ``kv_start`` window, an RWKV6 slot
-inherits the previous request's recurrent state (a caveat of the
-reference that the port keeps).  One run goes past ``max_len``, where
-the JAX package's cache write clamps to the last position.
+refilled: a dense or MoE slot starts a new ``kv_start`` window, while an
+RWKV6, Mamba2-hybrid or cross-attention slot inherits the previous
+request's recurrent state and cache prefix (the JAX package passes them
+no ``kv_start``; a caveat of the reference that the port keeps).  The
+cross-attention layers' decode cache is never filled in either package:
+it stays zeros.  One run goes past ``max_len``, where the JAX package's
+cache write clamps to the last position.
 """
 import numpy as np
 import pytest
@@ -26,12 +29,13 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as tlm
 from repro_torch.models.config import reduced as treduced
 from repro_torch.serve.engine import Request, ServeEngine
+from test_torch_models import open_cross_gates
 
 
 def _engines(arch: str, slots: int, max_len: int):
     over = {"n_kv_heads": 2} if arch == "qwen3-14b" else {}
     jcfg, tcfg = jreduced(jget(arch), **over), treduced(tget(arch), **over)
-    jparams = jlm.init_params(jcfg, jax.random.PRNGKey(3))
+    jparams = open_cross_gates(jlm.init_params(jcfg, jax.random.PRNGKey(3)))
     tparams = tlm.load_reference_params(tcfg, jax.tree.map(np.asarray, jparams), "cpu")
     return (JServeEngine(jcfg, jparams, batch_slots=slots, max_len=max_len),
             ServeEngine(tcfg, tparams, batch_slots=slots, max_len=max_len))
@@ -51,7 +55,8 @@ def _serve_both(arch, slots, max_len, prompts, max_new):
     return jeng, teng, jreqs, treqs
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-7b", "dbrx-132b", "zamba2-2.7b",
+                                  "llama-3.2-vision-90b"])
 def test_engine_tokens_equal_the_jax_engine_with_slot_reuse(arch):
     prompts = _prompts(11, 5, 256)
     ops.reset_launches()
@@ -62,6 +67,27 @@ def test_engine_tokens_equal_the_jax_engine_with_slot_reuse(arch):
     assert all(len(r.out) == 6 for r in treqs)
     assert teng.state["pos"] == int(jeng.state["pos"]) == teng.steps
     assert sum(ops.LAUNCHES.values()) == 0  # the CPU takes the plain versions
+    # the whole state too: what a refilled slot inherits is the reference's
+    for name in set(jeng.state) - {"pos"}:
+        np.testing.assert_allclose(teng.state[name].numpy(), np.asarray(jeng.state[name]),
+                                   rtol=1e-4, atol=1e-4, err_msg=name)
+    if "xk" in teng.state:  # never filled, in either package
+        assert not teng.state["xk"].any() and not teng.state["xv"].any()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama-3.2-vision-90b"])
+def test_refilled_slots_inherit_the_previous_occupant_as_in_the_jax_engine(arch):
+    """One slot, two requests: the second request's tokens depend on the
+    first (its recurrent state or cache prefix carries over), in both
+    engines alike.  Served alone, the second request gives other tokens."""
+    first, second = _prompts(4, 2, 256, lo=6, hi=7)
+    outs = {}
+    for name, prompts in (("after", [first, second]), ("alone", [second])):
+        jeng, teng, jreqs, treqs = _serve_both(arch, slots=1, max_len=64, prompts=prompts,
+                                               max_new=6)
+        assert [r.out for r in treqs] == [r.out for r in jreqs]
+        outs[name] = treqs[-1].out
+    assert outs["after"] != outs["alone"]
 
 
 def test_engine_past_max_len_clamps_the_cache_write_as_the_jax_engine():
@@ -83,6 +109,25 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert len(reqs) == 5 and all(r.done and len(r.out) == 3 for r in reqs)
     out = capsys.readouterr().out
     assert "arch=rwkv6-7b device=cpu served 5/5 requests, 15 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-2.7b", "llama-3.2-vision-90b"])
+def test_launcher_serves_the_new_families_on_the_cpu(arch, capsys):
+    reqs = tserve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                        "--slots", "2", "--max-new", "2"])
+    assert len(reqs) == 3 and all(r.done and len(r.out) == 2 for r in reqs)
+    assert f"arch={arch} device=cpu served 3/3 requests" in capsys.readouterr().out
+
+
+def test_launcher_and_engine_refuse_a_model_without_token_inputs():
+    """musicgen-medium takes frame embeddings: no engine feeds it (the JAX
+    engine sends tokens only); it is driven through lm.decode_step."""
+    with pytest.raises(SystemExit):
+        tserve.main(["--arch", "musicgen-medium", "--device", "cpu"])
+    cfg = treduced(tget("musicgen-medium"))
+    params = tlm.init_params(cfg, torch.Generator("cpu"), device="cpu")
+    with pytest.raises(ValueError, match="embeddings"):
+        ServeEngine(cfg, params)
 
 
 def test_launcher_wants_the_card_by_default():
