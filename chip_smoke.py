@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    runs, unaligned lengths and offset pointers; the substring find and
    its fused exists_before at row widths 1 to 128, base pointers 0 to 15
    bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
-   on strided inputs with its state written in place) and at the shapes
+   on strided inputs with its state written in place; the backward
+   kernels of K4 and K5, from the forward kernels' log-sum-exp, at head
+   dims 16 to 128, groups 1, 5 and 8, ragged and non-causal shapes, T 1
+   to 64 with and without a state, and the autograd Functions against
+   the CPU's autograd) and at the shapes
    the main paths give it (2b: TPC-H q1 and q18 group sums, the q13
    ``o_comment`` dictionary's find and exists_before, q9's ``p_name``
    and q16's ``s_comment`` dictionaries, the tuple hash of lineitem's
@@ -23,7 +27,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at head dim 112; Zamba2's shared block: group 1 at 80; the vision
    model's cross-attention: non-causal, 4096 queries over 1600 keys;
    MusicGen: head dim 64), RWKV6-7B's decode recurrence and its prefill
-   shape), with times and bounds;
+   shape, the backward kernels at the training shapes of phase 8b), with
+   times and bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
@@ -60,6 +65,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    gates opened to 0.5) with the same weights on both devices, prefill
    logits within 1e-4 and served tokens equal (MusicGen: four
    ``decode_step``s' logits);
+8. training: (a) the reduced float32 config of each of the ten
+   registered families from the same weights on the card and the CPU,
+   the loss and every gradient leaf of a microbatch (the forward kernels
+   twice and the backward kernels once a layer, under
+   ``remat="nothing"``), the weights after a train step, and after one
+   more step from the card's checkpoint restored on the CPU; (b)
+   Qwen3-14B (4 layers) and RWKV6-7B (8 layers) at their published
+   widths, 3 adamw steps of 4 x 4096 and 8 x 4096 tokens curated on the
+   card (K2's find and K1 in ``curate``), K4's and K5's forward and
+   backward launches of a step asserted, step time, tokens per second,
+   peak memory and a profiled step;
 5. one JSON line describing every kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -132,8 +148,24 @@ NEW_LM = {"dbrx-132b": 10, "kimi-k2-1t-a32b": 2, "zamba2-2.7b": None,
 # MusicGen takes frame embeddings, which no engine feeds: decode steps at
 # this batch instead
 EMBED_STEPS, EMBED_BATCH = 16, 4
-# the cross-attention gate opened in phase 7 (it starts at 0: closed)
+# the cross-attention gate opened in phases 7 and 8a (it starts at 0: closed)
 CROSS_GATE = 0.5
+# Training (phase 8b): the configurations at their published widths with
+# depth cut to fit one card (PERF.md section 4), (layers, batch), each
+# trained TRAIN_STEPS steps of batch x TRAIN_SEQ tokens; the curation
+# mixture of the training launcher
+TRAIN = {"qwen3-14b": (4, 4), "rwkv6-7b": (8, 8)}
+TRAIN_SEQ, TRAIN_STEPS = 4096, 3
+MIXTURE = {"web": 1.0, "books": 2.0, "wiki": 1.5, "code": 1.0}
+# Card vs CPU in training (phase 8a), float32: the loss (rtol) and each
+# gradient leaf (rtol, and atol relative to the leaf's largest |value|;
+# float32 sums in another order), a step's grad norm (rtol).  The Mamba2
+# hybrid's gradients get 5e-4: its SSD (plain PyTorch on both devices, no
+# kernel of this repository) takes exp of float32 cumulative sums of
+# log-decays, which the card and the CPU accumulate in another order
+# (its gradients drift to 1.1e-4 of a leaf's largest value after a step;
+# its logits drift most of the seven families in phase 7, too)
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "grad_ssd": 5e-4}
 # Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
 LM_CHECK_TOL = 1e-4
 
@@ -165,11 +197,14 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel_key: str, reps: int) -> float:
+def device_ms(torch, fn, kernel_key: str, reps: int, per_call: bool = False) -> float:
     """Mean device time of one launch of the kernel whose name holds
     ``kernel_key``, from ``torch.profiler`` over ``reps`` calls of ``fn``:
     the kernel alone, where ``cuda_ms`` also sees the host time of a
-    wrapper that cannot keep the card busy."""
+    wrapper that cannot keep the card busy.  With ``per_call``, the time of
+    one call of a wrapper that launches several such kernels, once each:
+    the sum of each kernel's mean launch, which a session that loses a
+    first device event (section 7 of PERF.md) does not skew."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -182,6 +217,8 @@ def device_ms(torch, fn, kernel_key: str, reps: int) -> float:
                 fn()
             torch.cuda.synchronize()
         hits = [(ms, n) for key, (ms, n) in device_busy(prof)[1].items() if kernel_key in key]
+        if hits and per_call:
+            return sum(ms / n for ms, n in hits)
         if hits:
             return sum(ms for ms, _ in hits) / sum(n for _, n in hits)
         log(f"  profiler session {attempt} of {PROFILE_TRIES} saw no {kernel_key} kernel")
@@ -736,6 +773,162 @@ def lm_edge_phase(torch, dev) -> None:
             raise AssertionError("wkv6 kernel: two chained calls differ from one")
 
 
+# The backward kernels against their plain versions on the same inputs:
+# the largest error of each gradient relative to the largest |plain
+# gradient| (K4: the largest of dq, dk and dv, whose terms share one scale:
+# with one key dq and dk are 0 up to rounding; float32: sums in another
+# order; bf16: the gradients' own rounding to bf16), and the forward kernels' log-sum-exp within LSE_TOL
+# (abs and rel: float32 sums in another order, ex2.approx on the tensor
+# cores).  The card's autograd against the CPU's: float32, FN_TOL.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+LSE_TOL = 1e-4
+FN_TOL = 1e-4
+
+
+def rel_err(torch, got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    scale = float(want.to(torch.float64).abs().max()) if want.numel() else 0.0
+    return max_abs_err(torch, got, want) / (scale or 1.0)
+
+
+def check_attention_bwd(torch, rng, q, k, v, causal: bool, label: str) -> float:
+    """K4's backward kernel on the forward kernel's o and log-sum-exp and a
+    random dO, against the plain backward on the same inputs; twice, to
+    show the result repeats bit for bit (no atomics)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
+    )
+
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    lse_err, lse_ok = allclose_err(torch, lse, attention_lse_plain(q, k, causal), LSE_TOL)
+    do = torch.as_tensor(rng.normal(size=tuple(o.shape)), device=q.device).to(q.dtype)
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    launched = build.LAUNCHES["flash_attention_bwd"] - before
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[str(q.dtype).replace("torch.", "")]
+    scale = max(float(w.to(torch.float64).abs().max()) for w in want) or 1.0
+    errs = [max_abs_err(torch, g, w) / scale for g, w in zip(got, want)]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = max(errs) <= tol and lse_ok and same and launched == 2
+    log(f"  flash_attention_bwd {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+        f"causal={causal} rel err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tol}), "
+        f"lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}), repeats={same} "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd kernel disagrees with its plain version at {label}")
+    return max(errs)
+
+
+def check_wkv6_bwd(torch, rng, args, label: str, with_dstate: bool) -> float:
+    """K5's backward kernel against the plain reverse recurrence on the same
+    inputs and a random dy (and gradient of the final state): all six
+    gradients."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+
+    r, k, v, w, u, s0 = args
+    dev = r.device
+    dy = torch.as_tensor(rng.normal(size=tuple(r.shape)), device=dev).to(r.dtype)
+    B, H, _, D = r.shape
+    dst = (torch.as_tensor(rng.normal(size=(B, H, D, D)), device=dev).float()
+           if with_dstate else None)
+    got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dst)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dst)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[str(r.dtype).replace("torch.", "")]
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+    errs = [rel_err(torch, g, w_) for g, w_ in zip(got, want)]
+    ok = max(errs) <= tol
+    log(f"  wkv6_bwd {label}: r {tuple(r.shape)} strides {r.stride()} {r.dtype} "
+        f"state={'yes' if s0 is not None else 'no'} dstate={'yes' if with_dstate else 'no'} "
+        + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+        + f" (rel, tol {tol}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"wkv6_bwd kernel disagrees with its plain version at {label}")
+    return max(errs)
+
+
+def check_autograd_functions(torch, rng, dev) -> None:
+    """ops.flash_attention and ops.wkv6 on CUDA inputs that require a
+    gradient: one forward and one backward launch each, gradients equal to
+    the CPU's autograd of the plain versions within FN_TOL (float32); and
+    the bare kernel wrappers refuse such inputs."""
+    from repro_torch.kernels import build, ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.wkv6 import wkv6_cuda
+
+    def both(*shape, low=None):
+        a = rng.uniform(low, 0.999, shape) if low is not None else rng.normal(size=shape) * 0.5
+        cpu = torch.as_tensor(a, dtype=torch.float32).requires_grad_()
+        return cpu, cpu.detach().to(dev).requires_grad_()
+
+    def compare(name, fn, inputs, kernels):
+        cpu_in, dev_in = zip(*inputs)
+        ops.reset_launches()
+        outs = fn(*dev_in)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        grads_out = [torch.as_tensor(rng.normal(size=tuple(o.shape)), dtype=torch.float32)
+                     for o in outs]
+        got = torch.autograd.grad(outs, dev_in, [g.to(dev) for g in grads_out])
+        launched = {n: build.LAUNCHES[n] for n in kernels}
+        want = torch.autograd.grad(fn(*cpu_in), cpu_in, grads_out)
+        errs = [rel_err(torch, g.cpu(), w) for g, w in zip(got, want)]
+        ok = max(errs) <= FN_TOL and all(n == 1 for n in launched.values())
+        log(f"  {name} on the card with autograd: launches {launched}, gradients rel err "
+            f"{max(errs):.3e} (tol {FN_TOL}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name}: the card's gradients disagree with the CPU's")
+
+    q, k, v = both(2, 10, 77, 64), both(2, 2, 77, 64), both(2, 2, 77, 64)
+    compare("ops.flash_attention", lambda *t: ops.flash_attention(*t, causal=True), [q, k, v],
+            ("flash_attention", "flash_attention_bwd"))
+    r, kk, vv = (both(2, 3, 21, 32) for _ in range(3))
+    w, u, s0 = both(2, 3, 21, 32, low=0.7), both(3, 32), both(2, 3, 32, 32)
+    compare("ops.wkv6", ops.wkv6, [r, kk, vv, w, u, s0], ("wkv6", "wkv6_bwd"))
+    for name, call in (
+        ("flash_attention_cuda", lambda: flash_attention_cuda(q[1], k[1], v[1], True)),
+        ("wkv6_cuda", lambda: wkv6_cuda(r[1], kk[1], vv[1], w[1], u[1], s0[1])),
+        ("ops.wkv6 with state_out", lambda: ops.wkv6(r[1], kk[1], vv[1], w[1], u[1], s0[1],
+                                                       state_out=torch.empty_like(s0[1]))),
+    ):
+        try:
+            call()
+        except (RuntimeError, ValueError) as e:
+            log(f"  {name} refuses inputs that want a gradient: {str(e)[:80]}")
+            continue
+        raise AssertionError(f"{name} took inputs that want a gradient")
+
+
+def bwd_edge_phase(torch, dev) -> None:
+    log("phase 2a: edge shapes of the backward kernels (K4: flash_attention_bwd, on the "
+        "forward kernels' log-sum-exp; K5: wkv6_bwd), and the autograd Functions")
+    rng = np.random.default_rng(13)
+    for dtype in (torch.float32, torch.bfloat16):
+        # (B, Hq, Hkv, Sq, Sk, D): head dims 16 to 128, groups 1, 5 and 8,
+        # Sq != Sk, ragged tiles, q strided as the model hands it over
+        for B, Hq, Hkv, Sq, Sk, D in [(1, 5, 1, 100, 100, 16), (2, 8, 1, 37, 200, 64),
+                                      (1, 10, 2, 130, 130, 128), (1, 4, 4, 65, 190, 80),
+                                      (1, 5, 5, 127, 300, 96), (1, 8, 8, 129, 129, 112),
+                                      (1, 16, 2, 300, 130, 128), (1, 2, 2, 1, 1, 32),
+                                      (2, 5, 1, 64, 64, 48), (1, 8, 1, 200, 77, 112)]:
+            q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(dtype)
+            k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
+            v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
+            for causal in ((True, False) if Sq <= Sk else (False,)):
+                check_attention_bwd(torch, rng, q.transpose(1, 2), k, v, causal, "edge")
+        for i, (B, H, T, D) in enumerate([(1, 2, 1, 16), (3, 5, 7, 64), (2, 4, 64, 64),
+                                          (1, 2, 7, 128), (2, 3, 33, 32), (1, 4, 17, 64)]):
+            for with_state in (False, True):
+                args = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state,
+                                   strided=bool((i + with_state) % 2))
+                check_wkv6_bwd(torch, rng, args, "edge", with_dstate=with_state)
+    check_autograd_functions(torch, rng, dev)
+
+
 def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
     """(query, key) pairs the mask keeps: the work K4 must do."""
     if not causal:
@@ -869,6 +1062,82 @@ def lm_main_shape_phase(torch, dev) -> dict:
         rows.append(row)
         del args, r, k, v, w, state
     out["wkv6"] = rows
+    return out
+
+
+def bwd_main_shape_phase(torch, dev) -> dict:
+    """The backward kernels at the training shapes of phase 8(b), with the
+    plain backward on the same inputs and the library's backward: K4's at
+    Qwen3-14B's (bf16, then float32 copies), K5's at RWKV6-7B's."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_fwd_cuda,
+    )
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+
+    log("phase 2b: backward kernels at the training shapes")
+    rng = np.random.default_rng(14)
+    qc = get("qwen3-14b")
+    B, Hq, Hkv, S, D = 1, qc.n_heads, qc.n_kv_heads, TRAIN_SEQ, qc.hd
+    q, k, v = attention_inputs(torch, rng, dev, B, Hq, Hkv, S, S, D)
+    rows = []
+    for dtype, peak in ((torch.bfloat16, PEAK_BF16_OPS_PER_S), (torch.float32, PEAK_OPS_PER_S)):
+        q, k, v = (t.to(dtype) for t in (q, k, v))  # q keeps the model's strides
+        o, lse = flash_attention_fwd_cuda(q, k, v, True)
+        do = torch.as_tensor(rng.normal(size=tuple(o.shape)), device=dev).to(dtype)
+        name = str(dtype).replace("torch.", "")
+        label = f"qwen3-14b training: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {name} causal"
+        err = check_attention_bwd(torch, rng, q, k, v, True, label)
+        # five products of 2 D a kept (query, key) pair and head; q, k, v,
+        # o, dO and lse read, dq, dk, dv written
+        nops = 5 * 2 * D * attention_pairs(S, S, True) * Hq * B
+        nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+        b_ms, b_by = bound_ms(nbytes, nops, peak)
+        bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+        k_ms = cuda_ms(torch, bwd, LM_REPS if dtype == torch.bfloat16 else 3)
+        d_ms = device_ms(torch, bwd, "fa_bwd_", 3, per_call=True)
+        p_ms = cuda_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True), 2)
+        # the library: scaled_dot_product_attention's backward alone, on the same inputs
+        qd, kd, vd = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True, enable_gqa=True)
+        l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qd, kd, vd), do,
+                                                          retain_graph=True), 3)
+        del out, qd, kd, vd
+        row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+                   library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+        log("   ", json.dumps(row))
+        rows.append(row)
+        del o, lse, do
+    del q, k, v
+    torch.cuda.empty_cache()
+    out = {"flash_attention_bwd": rows}
+
+    rc = get("rwkv6-7b")
+    H, D = rc.n_heads, rc.d_model // rc.n_heads
+    args = wkv6_inputs(torch, rng, dev, torch.bfloat16, 1, H, TRAIN_SEQ, D, False, strided=True)
+    label = (f"rwkv6-7b training: B=1 H={H} T={TRAIN_SEQ} D={D} bf16, strided, no initial "
+             f"state (the model's call)")
+    err = check_wkv6_bwd(torch, rng, args, label, with_dstate=False)
+    dy = torch.as_tensor(rng.normal(size=tuple(args[0].shape)), device=dev).to(torch.bfloat16)
+    bwd = lambda: wkv6_bwd_cuda(*args, dy)
+    k_ms = cuda_ms(torch, bwd, 3)
+    d_ms = device_ms(torch, bwd, "wkv6_bwd_kernel", 3)
+    p_ms = cuda_ms(torch, lambda: wkv6_bwd_plain(*args, dy), 1)
+    n = 1 * H * TRAIN_SEQ
+    # the forward recurrence again (P_t), G's recurrence, and dr, dk, dv,
+    # dw: 3 + 3 + 4 * 2 = 14 D^2 a head and step; r, k, v, w, dy read, dr,
+    # dk, dv, dw written, u read and du written
+    nops = 14 * n * D * D
+    nbytes = 9 * n * D * 2 + 2 * H * D * 4
+    b_ms, b_by = bound_ms(nbytes, nops)
+    row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+    log("   ", json.dumps(row))
+    out["wkv6_bwd"] = [row]
+    del args, dy
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1198,6 +1467,203 @@ def lm_check_phase(torch, ops, dev) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 8: training
+# ----------------------------------------------------------------------
+def train_launches(cfg) -> dict:
+    """Kernel launches of one microbatch's forward and backward under
+    ``remat="nothing"``: a checkpointed block runs its forward twice (once
+    more in the backward), the hybrid's shared attention block, which is
+    not checkpointed, once; one backward launch per layer."""
+    if cfg.family == "rwkv6":
+        return {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+    fwd = "flash_attention_sm90" if cfg.compute_dtype == "bfloat16" else "flash_attention"
+    n = attention_layers(cfg)
+    return {fwd: n if cfg.family == "mamba_hybrid" else 2 * n, "flash_attention_bwd": n}
+
+
+def train_batch(torch, cfg, dev, B: int, S: int, seed: int) -> dict:
+    """``model_inputs`` of ``cfg`` with next-token labels."""
+    batch = model_inputs(torch, cfg, dev, B, S, seed)
+    batch["labels"] = torch.as_tensor(
+        np.random.default_rng(seed + 1).integers(0, cfg.vocab, (B, S)), device=dev)
+    return batch
+
+
+def loss_and_grads(torch, lm, cfg, params, batch):
+    """Loss and each parameter's gradient of one microbatch, on the host."""
+    names, leaves = zip(*params.named_parameters())
+    loss, _ = lm.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), {n: g.cpu() for n, g in zip(names, grads)}
+
+
+def close_leaves(torch, got: dict, want: dict, rtol: float, atol_rel: float) -> float:
+    """The largest error of any leaf relative to its own largest |value|;
+    raises if a leaf is outside rtol |want| + atol_rel max|want|."""
+    worst = 0.0
+    for name, w in want.items():
+        g = got[name].to(torch.float64)
+        w = w.to(torch.float64)
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        err = (g - w).abs()
+        if bool((err > rtol * w.abs() + atol_rel * scale).any()):
+            raise AssertionError(f"{name}: max error {float(err.max())!r} over max |value| {scale!r}")
+        worst = max(worst, float(err.max()) / (scale or 1.0))
+    return worst
+
+
+def train_check_phase(torch, ops, dev) -> None:
+    """Phase 8(a): the reduced float32 config of each registered family
+    from the same weights on the card and the CPU (cross-attention gates
+    opened to CROSS_GATE): the loss and every gradient leaf of one
+    microbatch, with the card's launches, and one train step's metrics;
+    then the card's checkpoint restored on the CPU, which must equal the
+    card's state bit for bit, and from it again the loss and every
+    gradient leaf of the next microbatch and one more step's metrics.
+    The weights after a step are not compared element by element: Adam's
+    first steps divide each gradient by its own magnitude, so a weight
+    whose gradient is at rounding level may move by up to lr either way."""
+    import copy
+    import shutil
+
+    from repro_torch.configs import ARCHS, get
+    from repro_torch.models import lm
+    from repro_torch.models.config import reduced
+    from repro_torch.train import checkpoint
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    log(f"phase 8a: training, card vs CPU (reduced float32 configs of all {len(ARCHS)} families: "
+        f"loss rtol {TRAIN_TOL['loss']}, each gradient leaf within {TRAIN_TOL['grad']} of its "
+        f"largest |value|, step metrics)")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    host = lambda st: {n: p.detach().cpu() for n, p in st["params"].named_parameters()}
+
+    def agree(what, card_s, cpu_s, batch):
+        ops.reset_launches()
+        loss_c, grads_c = loss_and_grads(torch, lm, cfg, card_s["params"],
+                                         {n: t.to(dev) for n, t in batch.items()})
+        launched = {n: c for n, c in ops.LAUNCHES.items() if c}
+        loss_h, grads_h = loss_and_grads(torch, lm, cfg, cpu_s["params"], batch)
+        if abs(loss_c - loss_h) > TRAIN_TOL["loss"] * abs(loss_h):
+            raise AssertionError(f"{arch} {what}: card loss {loss_c!r}, CPU loss {loss_h!r}")
+        tol = TRAIN_TOL["grad_ssd" if cfg.family == "mamba_hybrid" else "grad"]
+        err = close_leaves(torch, grads_c, grads_h, tol, tol)
+        if launched != train_launches(cfg):
+            raise AssertionError(f"{arch}: a microbatch launched {launched}, wants "
+                                 f"{train_launches(cfg)}")
+        return loss_c, loss_h, err, launched
+
+    def step_both(card_s, cpu_s, batch):
+        card_s, m_c = step(card_s, {n: t.to(dev) for n, t in batch.items()})
+        cpu_s, m_h = step(cpu_s, batch)
+        for key, tol in (("loss", TRAIN_TOL["loss"]), ("grad_norm", TRAIN_TOL["grad"])):
+            a, b = float(m_c[key]), float(m_h[key])
+            if abs(a - b) > tol * abs(b):
+                raise AssertionError(f"{arch}: step {key} {a!r} on the card, {b!r} on the CPU")
+        return card_s, cpu_s
+
+    for arch in ARCHS:
+        cfg = reduced(get(arch), **({"n_kv_heads": 2} if arch == "qwen3-14b" else {}))
+        cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(3), device="cpu")
+        for block in (cpu["cross_blocks"] if "cross_blocks" in cpu else []):
+            block["attn"]["gate"].fill_(CROSS_GATE)
+        card = copy.deepcopy(cpu).to(dev)
+        cpu_s, card_s = init_train_state(cfg, params=cpu), init_train_state(cfg, params=card)
+        batches = [train_batch(torch, cfg, "cpu", 2, 64, seed) for seed in (0, 1)]
+        step = make_train_step(cfg)
+        loss_c, loss_h, err1, launched = agree("from the same weights", card_s, cpu_s, batches[0])
+        card_s, cpu_s = step_both(card_s, cpu_s, batches[0])
+        # the card's checkpoint, restored on the CPU, is the card's state
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        checkpoint.save(card_s, str(ckpt_dir), card_s["step"])
+        moved = checkpoint.restore(str(ckpt_dir), cpu_s, device="cpu")
+        shutil.rmtree(ckpt_dir)
+        same = all(torch.equal(a, b) for a, b in zip(host(moved).values(), host(card_s).values()))
+        if not (same and moved["step"] == 1 and moved["opt"]["step"] == 1):
+            raise AssertionError(f"{arch}: the restored checkpoint differs from the card's state")
+        _, _, err2, _ = agree("from the checkpoint", card_s, moved, batches[1])
+        step_both(card_s, moved, batches[1])
+        log(f"  {cfg.name} reduced ({cfg.optimizer}, gradients in {cfg.grad_dtype}): microbatch "
+            f"launches {launched}; loss {loss_c:.6f} (CPU {loss_h:.6f}); gradients rel err "
+            f"{err1:.3e}, and {err2:.3e} from the card's checkpoint restored on the CPU "
+            f"(bit-equal); both steps' loss and grad norm agree ok")
+
+
+def train_run(torch, ops, arch: str, depth: int, batch: int, seed: int, dev) -> dict:
+    """Phase 8(b): ``arch`` at its published widths and ``depth`` layers,
+    trained TRAIN_STEPS steps of ``batch`` x TRAIN_SEQ tokens from
+    ``curate`` and ``token_batches`` on the card; the launch counts of the
+    first step (zeroed just before it) asserted; then one profiled step."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get
+    from repro_torch.data import tokens as tok
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get(arch), n_layers=depth)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ops.reset_launches()
+    doc_ids, weights = tok.curate(tok.synthetic_corpus(2000, seed=seed), mixture=MIXTURE,
+                                  device=dev)
+    curate_launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+    data = [{name: torch.as_tensor(a, dtype=torch.int64, device=dev) for name, a in b.items()}
+            for b in tok.token_batches(doc_ids, weights, cfg.vocab, batch, TRAIN_SEQ, seed=seed,
+                                       steps=TRAIN_STEPS + 1)]
+    log(f"  {arch}: curated {len(doc_ids)} docs on the card (launches {curate_launches}), "
+        f"{TRAIN_STEPS + 1} batches of {batch} x {TRAIN_SEQ} tokens in "
+        f"{time.perf_counter() - t:.3f} s")
+    if not {"segment_sum", "substr_find"} <= set(curate_launches):
+        raise AssertionError(f"curate on the card launched {curate_launches}; wants K1 and K2")
+    t = time.perf_counter()
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(seed), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(f"  {arch} ({depth} layers, {cfg.optimizer}, {cfg.microbatches} microbatches): "
+        f"{n_params} parameters ({cfg.param_dtype}) and optimizer state on the card in "
+        f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
+    step = make_train_step(cfg)
+    want = {n: c * cfg.microbatches for n, c in train_launches(cfg).items()}
+    step_ms, losses, launches = [], [], None
+    for i in range(TRAIN_STEPS):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, data[i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if launches is None:
+            launches = {n: c for n, c in ops.LAUNCHES.items() if c}
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"{arch} step {i}: loss {loss}, grad norm {gnorm}")
+        losses.append(loss)
+        log(f"  {arch} step {i + 1}: loss {loss:.6f} grad_norm {gnorm:.6f} {step_ms[-1]:.3f} ms")
+    if launches != want:
+        raise AssertionError(f"{arch}: a train step launched {launches}; wants {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = float(np.median(step_ms[1:]))
+    res = dict(layers=depth, params=n_params, batch=batch, seq=TRAIN_SEQ,
+               microbatches=cfg.microbatches, step_ms=step_ms, step_ms_median_warm=warm,
+               tokens_per_s=batch * TRAIN_SEQ / (warm / 1e3), peak_gb=peak, losses=losses,
+               launches=launches)
+    log(f"  {arch} trained: {json.dumps(res)}")
+    profiled(torch, f"{arch} train step ({batch} x {TRAIN_SEQ} tokens)",
+             lambda: step(state, data[TRAIN_STEPS]))
+    del state, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_phase(torch, ops, dev, seed: int) -> dict:
+    log("phase 8b: training at full width (random weights; tokens curated on the card)")
+    return {arch: train_run(torch, ops, arch, depth, batch, seed, dev)
+            for arch, (depth, batch) in TRAIN.items()}
+
+
+# ----------------------------------------------------------------------
 # phases 3 and 4: the main path, and the card against the CPU
 # ----------------------------------------------------------------------
 def run_queries(torch, QF, frames, sf: float):
@@ -1374,7 +1840,9 @@ def main() -> int:
     edge_phase(torch, seg, sf, dev)
     hash_edge_phase(torch, dev)
     lm_edge_phase(torch, dev)
+    bwd_edge_phase(torch, dev)
     lm_shapes = lm_main_shape_phase(torch, dev)
+    lm_shapes.update(bwd_main_shape_phase(torch, dev))
 
     # main-path data
     t = time.perf_counter()
@@ -1437,6 +1905,9 @@ def main() -> int:
     # phases 6 and 7: the LM path at full width, then card vs CPU
     lm_runs = lm_phase(torch, ops, dev, args.seed)
     f32_runs = lm_check_phase(torch, ops, dev)
+    # phase 8: training, card vs CPU, then at full width
+    train_check_phase(torch, ops, dev)
+    train_runs = train_phase(torch, ops, dev, args.seed)
     # launches of each kernel in its main-path run: K4's bf16 kernel in
     # Qwen3-14B's prefill, its f32 kernel in the reduced f32 Qwen3-14B
     # prefill of phase 7, K5 in RWKV6-7B's serving run, K3 in its one call
@@ -1446,6 +1917,9 @@ def main() -> int:
     launches["flash_attention"] = f32_runs["qwen3-14b"]["flash_attention"]
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
     launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
+    # the backward kernels: in one train step of phase 8b
+    launches["flash_attention_bwd"] = train_runs["qwen3-14b"]["launches"]["flash_attention_bwd"]
+    launches["wkv6_bwd"] = train_runs["rwkv6-7b"]["launches"]["wkv6_bwd"]
     shapes.update(lm_shapes)
     for arch, run in lm_runs.items():
         if "prefill" in run:
@@ -1465,6 +1939,12 @@ def main() -> int:
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:65"),
         "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
+        # the backward kernels have no TPU counterpart (the JAX package
+        # differentiates through XLA): "replaces" names the TPU kernel
+        # whose function they differentiate
+        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:65"),
+        "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu", "src/repro/kernels/wkv6.py:51"),
     }
     kernels = []
     timed = ("label", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1477,8 +1957,10 @@ def main() -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
+            "backward": name.endswith("_bwd"),
             # K1's q1 shapes and its mid path, K4's later families' shapes,
-            # K5's prefill shape (0 launches on the serving path)
+            # K5's prefill shape (0 launches on the serving path), K4's
+            # backward on float32 inputs
             "other_shapes": [{key: r[key] for key in timed} for r in rows[1:]],
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]

@@ -1,1 +1,2 @@
-"""TPC-H data generation for the port."""
+"""Data generation for the port: TPC-H tables, and the synthetic LM corpus
+with its curation and token batches."""

@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, List
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = [
@@ -41,13 +43,18 @@ SIGNATURES = {
     "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
     "flash_attention": (
         "repro_flash_attention",
-        [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
+        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
     ),
     "flash_attention_sm90": (
         "repro_flash_attention_sm90",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
     ),
     "hash32x2": ("repro_hash32x2", [_P, _L, _I, _P, _P]),
+    # the backward kernels of K4 and K5 (training; no TPU counterpart)
+    "flash_attention_bwd": (
+        "repro_flash_attention_bwd", [_I] + [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
+    ),
+    "wkv6_bwd": ("repro_wkv6_bwd", [_I] + [_P] * 17 + [ctypes.POINTER(_L), _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
@@ -61,6 +68,18 @@ _FNS: Dict[str, object] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def wants_grad(*tensors) -> bool:
+    """Whether autograd would record a gradient through these tensors (None
+    entries are skipped): a kernel writes its outputs through raw pointers,
+    so such inputs must go through the kernel's autograd Function."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in tensors:  # a loop, not a generator: it runs in every decode-step layer
+        if t is not None and t.requires_grad:
+            return True
+    return False
 
 
 def _nvcc() -> str:

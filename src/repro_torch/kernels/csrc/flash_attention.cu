@@ -13,6 +13,11 @@
 // the TPU: every real row sees key 0 in the first tile, so the running
 // max is finite from then on and masked entries add exp(-huge) = 0.
 // Rows and columns past Sq and Sk are masked, so any lengths work.
+// Where the caller passes an `lse` buffer (training), the finish step
+// also writes each row's log-sum-exp of the scaled logits, m + log l, in
+// float32 (B, Hq, Sq): the backward kernel (flash_attention_bwd.cu)
+// recomputes the probabilities from it.  Serving passes null and the
+// kernel does the same work as before.
 //
 // Layout: 256 threads, thread (ty, tx) = (tid / 16, tid % 16) owns q rows
 // ty + 16 i (i < 4) of the tile; for the logits it owns columns
@@ -76,8 +81,8 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int group, int Sq, int Sk, Strides qs, Strides ks, Strides vs,
-    Strides os, float scale, int causal) {
+    T* __restrict__ o, float* __restrict__ lse, int group, int Sq, int Sk, Strides qs,
+    Strides ks, Strides vs, Strides os, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -190,12 +195,15 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     if (row < Sq) {
 #pragma unroll
       for (int c = 0; c < DC; ++c) ob[row * os.s + tx + 16 * c] = from_f<T>(acc[i][c] / l[i]);
+      if (lse != nullptr && tx == 0)
+        lse[(static_cast<size_t>(b) * gridDim.y + h) * Sq + row] = m[i] + logf(l[i]);
     }
   }
 }
 
 template <typename T, int D>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq, int group,
+int launch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+             int group,
              int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
              int causal, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
@@ -210,19 +218,20 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B, int Hq
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kern<<<grid, kThreads, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                    static_cast<const T*>(v), static_cast<T*>(o), group, Sq, Sk,
-                                    qs, ks, vs, os, scale, causal);
+                                    static_cast<const T*>(v), static_cast<T*>(o), lse, group, Sq,
+                                    Sk, qs, ks, vs, os, scale, causal);
   return 0;
 }
 
 template <typename T>
-int launch(int D, const void* q, const void* k, const void* v, void* o, int B, int Hq, int group,
+int launch(int D, const void* q, const void* k, const void* v, void* o, float* lse, int B, int Hq,
+           int group,
            int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os, float scale,
            int causal, cudaStream_t s) {
 #define REPRO_FA_CASE(DD)                                                                 \
   case DD:                                                                                \
-    return launch_d<T, DD>(q, k, v, o, B, Hq, group, Sq, Sk, qs, ks, vs, os, scale, causal, \
-                           s);
+    return launch_d<T, DD>(q, k, v, o, lse, B, Hq, group, Sq, Sk, qs, ks, vs, os, scale,   \
+                           causal, s);
   switch (D) {
     REPRO_FA_CASE(16)
     REPRO_FA_CASE(32)
@@ -241,10 +250,13 @@ int launch(int D, const void* q, const void* k, const void* v, void* o, int B, i
 
 // dtype of q/k/v/o: 0 = float32, 1 = bfloat16.  q (B, Hq, Sq, D) and
 // k/v (B, Hkv, Sk, D) with the given element strides (batch, head, seq;
-// the last dim contiguous); o likewise.  D a multiple of 16 in [16, 128];
-// Hq a multiple of Hkv; Sq, Sk >= 1; causal needs Sq <= Sk.
+// the last dim contiguous); o likewise.  lse, if not null, receives the
+// float32 (B, Hq, Sq) log-sum-exp of each row's scaled logits.  D a
+// multiple of 16 in [16, 128]; Hq a multiple of Hkv; Sq, Sk >= 1; causal
+// needs Sq <= Sk.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* o, int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                                     void* o, void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                                     int D,
                                      long long qsb, long long qsh, long long qss, long long ksb,
                                      long long ksh, long long kss, long long vsb, long long vsh,
                                      long long vss, long long osb, long long osh, long long oss,
@@ -255,11 +267,12 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
   int err;
   switch (dtype) {
     case 0:
-      err = launch<float>(D, q, k, v, o, B, Hq, group, Sq, Sk, qs, ks, vs, os, scale, causal, s);
+      err = launch<float>(D, q, k, v, o, static_cast<float*>(lse), B, Hq, group, Sq, Sk, qs, ks,
+                          vs, os, scale, causal, s);
       break;
     case 1:
-      err = launch<__nv_bfloat16>(D, q, k, v, o, B, Hq, group, Sq, Sk, qs, ks, vs, os, scale,
-                                  causal, s);
+      err = launch<__nv_bfloat16>(D, q, k, v, o, static_cast<float*>(lse), B, Hq, group, Sq, Sk,
+                                  qs, ks, vs, os, scale, causal, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

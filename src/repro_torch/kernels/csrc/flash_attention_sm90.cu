@@ -60,7 +60,11 @@
 //     ex2.approx per logit); a row lives in the four threads of a quad,
 //     so row maxima are two shuffles; the denominator is kept per thread
 //     and reduced once, at the end.
-//   * The end: O divided by the denominator, written in bf16.
+//   * The end: O divided by the denominator, written in bf16; where the
+//     caller passes an `lse` buffer (training), also each row's float32
+//     log-sum-exp of the scaled logits, m / sqrt(D) + log l, which the
+//     backward kernel (flash_attention_bwd.cu) recomputes P from.  Serving
+//     passes null: the same work as without it.
 //   * Grid: (batch x q head, q tile), the q tile reversed so the causal
 //     tiles with the most kv tiles launch first.
 //
@@ -294,6 +298,8 @@ __device__ __forceinline__ void pv_product(float (&acc)[DP / 2], const uint32_t 
 struct Params {
   int hq, group, Sq, Sk, n_qt, causal;
   float scale_log2;                // 1 / sqrt(D) * log2(e)
+  float scale;                     // 1 / sqrt(D)
+  float* lse;                      // (B, Hq, Sq) float32 log-sum-exp, or null
   long long osb, osh, oss;         // o's element strides
   int pos_q[3], pos_k[3], pos_v[3];  // tensor-map dim of (seq, head, batch)
 };
@@ -522,6 +528,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, sh);
   }
   const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  if (p.lse != nullptr && (lane & 3) == 0) {  // one thread of each row's quad
+    float* lb = p.lse + (static_cast<size_t>(b) * p.hq + h) * p.Sq;
+    if (row_lo < p.Sq) lb[row_lo] = m_lo * p.scale + logf(l_lo);
+    if (row_lo + 8 < p.Sq) lb[row_lo + 8] = m_hi * p.scale + logf(l_hi);
+  }
   __nv_bfloat16* ob = o + b * p.osb + h * p.osh;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
@@ -625,9 +636,12 @@ int launch_d(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv
 // bf16 q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D) with the given element
 // strides (batch, head, seq; the last dim contiguous; every stride of a
 // dim longer than 1 a multiple of 8 elements, every base 16-byte
-// aligned); o likewise, any strides.  D a multiple of 16 in [16, 128];
-// Hq a multiple of Hkv; Sq, Sk >= 1; causal needs Sq <= Sk.
+// aligned); o likewise, any strides.  lse, if not null, receives the
+// float32 (B, Hq, Sq) log-sum-exp of each row's scaled logits.  D a
+// multiple of 16 in [16, 128]; Hq a multiple of Hkv; Sq, Sk >= 1; causal
+// needs Sq <= Sk.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const void* v, void* o,
+                                          void* lse,
                                           int B, int Hq, int Hkv, int Sq, int Sk, int D,
                                           long long qsb, long long qsh, long long qss,
                                           long long ksb, long long ksh, long long kss,
@@ -643,6 +657,8 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k, const vo
   p.n_qt = (Sq + kBM - 1) / kBM;
   p.causal = causal;
   p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale = scale;
+  p.lse = static_cast<float*>(lse);
   p.osb = osb;
   p.osh = osh;
   p.oss = oss;

@@ -3,7 +3,10 @@
 A CUDA tensor launches the kernel (and its wrapper counts the launch in
 ``LAUNCHES``); a CPU tensor takes the plain PyTorch version; any other
 device raises.  Nothing falls back: a kernel that fails to build or
-launch raises.
+launch raises.  Where autograd wants a gradient of attention (K4) or the
+WKV recurrence (K5), a CUDA tensor goes through the kernel's autograd
+Function (its forward kernel, then its backward kernel); on the CPU
+autograd differentiates the plain version.
 """
 from __future__ import annotations
 
@@ -13,13 +16,13 @@ import torch
 
 from . import build
 from .build import LAUNCHES  # noqa: F401  (re-exported)
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import FlashAttentionFn, flash_attention_cuda, flash_attention_plain
 from .hash32x2 import hash32x2_cuda, hash32x2_plain
 from .segment_reduce import PATH_LAUNCHES, segment_sum_cuda, segment_sum_plain
 from .substr_find import (
     MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
 )
-from .wkv6 import wkv6_cuda, wkv6_plain
+from .wkv6 import Wkv6Fn, wkv6_cuda, wkv6_plain
 
 
 def reset_launches() -> None:
@@ -79,6 +82,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Grouped-query attention, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) (K4)."""
     if _route(q, "flash_attention") == "cuda":
+        if build.wants_grad(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, causal)
         return flash_attention_cuda(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
 
@@ -97,7 +102,13 @@ def wkv6(
     1 on D for the kernel), state carried (K5).  y comes back as the
     (B, H, T, D) view of a (B, T, H, D) tensor.  ``state_out``, where
     given, receives the final state and is returned; it may be ``state``
-    itself.  Without it ``state`` is left as it was."""
+    itself.  Without it ``state`` is left as it was.  Where a gradient is
+    wanted ``state_out`` is refused: an update in place has none."""
+    grad = build.wants_grad(r, k, v, w, u, state)
+    if grad and state_out is not None:
+        raise ValueError("wkv6: state_out (an update in place) takes no gradient")
     if _route(r, "wkv6") == "cuda":
+        if grad:
+            return Wkv6Fn.apply(r, k, v, w, u, state)
         return wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
     return wkv6_plain(r, k, v, w, u, state, state_out=state_out)

@@ -4,11 +4,13 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention_plain
+from .flash_attention import (  # noqa: F401  (the backward's plain versions re-exported)
+    attention_lse_plain, flash_attention_bwd_plain, flash_attention_plain,
+)
 from .hash32x2 import fmix32, hash32x2_plain  # noqa: F401  (fmix32 re-exported)
 from .segment_reduce import segment_sum_plain
 from .substr_find import exists_before_plain, substr_find_plain
-from .wkv6 import wkv6_plain
+from .wkv6 import wkv6_bwd_plain, wkv6_plain  # noqa: F401
 
 #: K3's contract: (n, k) int32/uint32 -> (n, 2) uint32; ``fmix32`` on
 #: int64 values in [0, 2^32), as PyTorch has no uint32 shift on the CPU

@@ -27,6 +27,15 @@ keeps the launch arguments it derives; a repeated signature (every layer
 of every decode step) costs one dict lookup.  The float32 copy of a
 non-float32 ``u`` is cached by its storage and version counter, so an
 unchanged parameter is cast once and a changed one again.
+
+The backward (training) has no TPU counterpart: the JAX package
+differentiates through its XLA form.  ``Wkv6Fn`` is the autograd Function
+of the card: the forward kernel, then the hand-written backward kernel
+``csrc/wkv6_bwd.cu`` (``wkv6_bwd_cuda``), which gives the gradients of r,
+k, v, w, u and the initial state; ``wkv6_bwd_plain`` is the reverse
+recurrence in plain PyTorch.  ``wkv6_cuda`` itself raises on inputs that
+want a gradient: its outputs would have none (and ``u`` reaches the
+kernel as a detached float32 copy).
 """
 from __future__ import annotations
 
@@ -190,6 +199,11 @@ def wkv6_cuda(
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6 kernel needs CUDA tensors, got {dev}")
+    if build.wants_grad(r, k, v, w, u, state):
+        raise RuntimeError(
+            "wkv6_cuda: CUDA inputs that require a gradient go through ops.wkv6 (Wkv6Fn); "
+            "the bare kernel's outputs would have no gradient"
+        )
     plan = wkv6_launch_plan(r, k, v, w, u, state, state_out)
     s0 = state.to(torch.float32).contiguous() if plan.cast_state else state
     if state_out is None:
@@ -220,3 +234,143 @@ def _launch(fn, plan, r, k, v, w, u, s0, y, sout, dev) -> int:
     )
     build.LAUNCHES["wkv6"] += 1
     return err
+
+
+# ----------------------------------------------------------------------
+# backward
+# ----------------------------------------------------------------------
+#: steps between the backward kernel's state checkpoints (kChunk in the source)
+BWD_CHUNK = 16
+
+
+def wkv6_bwd_plain(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor],
+    dy: torch.Tensor,
+    dstate: Optional[torch.Tensor] = None,
+):
+    """The gradients of ``wkv6_plain``'s (y, final state) by the reverse
+    recurrence, in float32: with P_t the state before step t and G_t the
+    gradient of the state after it (G_{T-1} = ``dstate``, or 0),
+
+        dr_t = P_t dy_t + u k_t (v_t . dy_t)
+        dk_t = r_t u (v_t . dy_t) + G_t v_t
+        dv_t = (sum r_t u k_t) dy_t + G_t^T k_t
+        dw_t = rowsum(G_t * P_t)
+        du   = sum_t r_t k_t (v_t . dy_t)
+        G_{t-1} = diag(w_t) G_t + r_t dy_t^T
+
+    Returns (dr, dk, dv, dw in r's dtype, (B, H, T, D); du in u's dtype;
+    the initial state's gradient G_{-1}, float32 (B, H, D, D))."""
+    B, H, T, D = r.shape
+    rf, kf, vf, wf, gf = (t.to(torch.float32) for t in (r, k, v, w, dy))
+    uf = u.to(torch.float32)
+    S = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    before = []
+    for t in range(T):
+        before.append(S)
+        S = wf[:, :, t, :, None] * S + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    G = (torch.zeros((B, H, D, D), dtype=torch.float32, device=r.device)
+         if dstate is None else dstate.to(torch.float32))
+    dr, dk, dv, dw = (torch.empty((B, H, T, D), dtype=torch.float32, device=r.device)
+                      for _ in range(4))
+    du = torch.zeros((B, H, D), dtype=torch.float32, device=r.device)
+    for t in reversed(range(T)):
+        P, g = before[t], gf[:, :, t]
+        rt, kt, vt = rf[:, :, t], kf[:, :, t], vf[:, :, t]
+        vdy = (vt * g).sum(-1, keepdim=True)
+        dr[:, :, t] = torch.einsum("bhij,bhj->bhi", P, g) + uf * kt * vdy
+        dk[:, :, t] = rt * uf * vdy + torch.einsum("bhij,bhj->bhi", G, vt)
+        dv[:, :, t] = (rt * uf * kt).sum(-1, keepdim=True) * g + torch.einsum(
+            "bhij,bhi->bhj", G, kt)
+        dw[:, :, t] = (G * P).sum(-1)
+        du += rt * kt * vdy
+        G = wf[:, :, t, :, None] * G + rt[..., None] * g[:, :, None, :]
+    out = tuple(x.to(r.dtype) for x in (dr, dk, dv, dw))
+    return (*out, du.sum(0).to(u.dtype), G)
+
+
+def wkv6_bwd_cuda(
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor],
+    dy: torch.Tensor,
+    dstate: Optional[torch.Tensor] = None,
+):
+    """``wkv6_bwd_plain`` on the card, through the CUDA kernel
+    (``csrc/wkv6_bwd.cu``).  r, k, v, w and dy take any strides with stride
+    1 on D; dr, dk, dv and dw come back as (B, H, T, D) views of (B, T, H, D)
+    tensors, as y does.  The kernel recomputes the forward states from
+    checkpoints every BWD_CHUNK steps, in scratch of
+    B H (ceil(T / BWD_CHUNK) + BWD_CHUNK + 1) D^2 floats alive during the call."""
+    dev = r.device
+    if dev.type != "cuda":
+        raise ValueError(f"wkv6 backward kernel needs CUDA tensors, got {dev}")
+    plan = _check_wkv6_args(r, k, v, w, u, state, None)
+    B, H, T, D = r.shape
+    if dy.shape != r.shape or dy.dtype != r.dtype or dy.device != dev:
+        raise ValueError(f"wkv6 backward: dy {tuple(dy.shape)} {dy.dtype} does not match r "
+                         f"{tuple(r.shape)} {r.dtype}")
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    if dstate is not None:
+        if dstate.shape != (B, H, D, D) or dstate.device != dev:
+            raise ValueError(f"wkv6 backward: dstate has shape {tuple(dstate.shape)}")
+        dstate = dstate.to(torch.float32).contiguous()
+    s0 = state.to(torch.float32).contiguous() if plan.cast_state else state
+    dr, dk, dv, dw = (_y_buffer(r) for _ in range(4))
+    du = torch.empty((B, H, D), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+    if plan.empty:
+        for t in (dr, dk, dv, dw, du):
+            t.zero_()
+        return dr, dk, dv, dw, du.sum(0).to(u.dtype), (
+            ds0.zero_() if dstate is None else ds0.copy_(dstate))
+    n_chunks = -(-T // BWD_CHUNK)
+    ckpt = torch.empty((B * H * n_chunks * D * D,), dtype=torch.float32, device=dev)
+    chunk = torch.empty((B * H * BWD_CHUNK * D * D,), dtype=torch.float32, device=dev)
+    gsave = torch.empty((B * H * D * D,), dtype=torch.float32, device=dev)
+    dims = list(plan.dims)[:16] + list(dy.stride()[:3])
+    fn = build.kernel("wkv6_bwd")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        err = fn(
+            plan.dtype, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), dy.data_ptr(),
+            _u_f32(u).data_ptr(), ptr(s0), ptr(dstate), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
+            chunk.data_ptr(), gsave.data_ptr(), (ctypes.c_longlong * 19)(*dims),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        build.LAUNCHES["wkv6_bwd"] += 1
+    build.check("wkv6_bwd", err)
+    return dr, dk, dv, dw, du.sum(0).to(u.dtype), ds0
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """K5 with a gradient on the card: the forward kernel, then the
+    backward kernel, which gives the gradients of r, k, v, w, u and the
+    initial state.  Only the inputs are kept for the backward: it
+    recomputes the states itself."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        y, s_out = wkv6_cuda(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        dr, dk, dv, dw, du, ds0 = wkv6_bwd_cuda(r, k, v, w, u, state, dy, dstate)
+        return dr, dk, dv, dw, du, (None if state is None else ds0.to(state.dtype))

@@ -1,22 +1,27 @@
-"""Model facade: init / forward / prefill / decode for every family of
-the JAX package (dense, MoE, RWKV6, the Mamba2 hybrid, cross-attention
-layers, embedding inputs), a Python loop over layers where the JAX
-package scans over stacked layer parameters.
+"""Model facade: init / forward / loss / prefill / decode for every
+family of the JAX package (dense, MoE, RWKV6, the Mamba2 hybrid,
+cross-attention layers, embedding inputs), a Python loop over layers
+where the JAX package scans over stacked layer parameters, each block
+under ``cfg.remat`` while a gradient is wanted.
 
 Mirrors ``repro/models/lm.py``.  Weights live in a ``Params`` module:
 one sub-module per block (``params["blocks"][i]``, and
-``params["cross_blocks"][i]``), every weight a frozen parameter under the
-reference's name.  ``load_reference_params`` carries the JAX package's
-parameter pytree over, so both packages compute the same logits from the
-same weights.
+``params["cross_blocks"][i]``), every weight a parameter under the
+reference's name, frozen unless training makes it trainable
+(``train.train_step.init_train_state``).  ``load_reference_params``
+carries the JAX package's parameter pytree over, so both packages
+compute the same logits from the same weights; ``reference_tree`` is its
+inverse, for weights and for gradients.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple, Union
+import functools
+from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..core.config import resolve_device
 from . import layers, mamba, rwkv
@@ -45,6 +50,15 @@ class Params(nn.Module):
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
+
+    def trainable(self) -> bool:
+        """Whether any weight requires a gradient.  The flat tuple of the
+        weights is kept on first use (a walk of the module tree costs about
+        0.5 ms at 40 layers, every forward); their flags are read anew."""
+        flat = self.__dict__.get("_flat")
+        if flat is None:
+            flat = self.__dict__["_flat"] = tuple(self.parameters())
+        return any(p.requires_grad for p in flat)
 
 
 # ----------------------------------------------------------------------
@@ -137,6 +151,59 @@ def load_reference_params(
     return Params(out)
 
 
+def tree_from_names(named: Mapping[str, torch.Tensor]) -> Dict:
+    """``{"blocks.0.attn.wq": t, ...}`` (``named_parameters``' names, as
+    gradients are keyed) as the nested dict, with lists for the per-block
+    modules, that ``Params`` is built from: ``Params(tree_from_names(
+    dict(p.named_parameters())))`` rebuilds ``p``."""
+    out: Dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        node = out
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            child = [] if nxt.isdigit() else {}
+            if isinstance(node, list):
+                i = int(part)
+                node.extend(None for _ in range(i + 1 - len(node)))
+                if node[i] is None:
+                    node[i] = child
+                node = node[i]
+            else:
+                node = node.setdefault(part, child)
+        node[parts[-1]] = t
+    return out
+
+
+def reference_tree(tree: Union[Params, Mapping[str, torch.Tensor]]) -> Dict:
+    """The inverse of ``load_reference_params``: the port's weights (a
+    ``Params``), or gradients keyed by parameter name, as the JAX
+    package's pytree of numpy arrays.  Each leaf of the per-block lists
+    (``blocks``, ``cross_blocks``) is stacked on a leading layer axis;
+    bfloat16 comes back as float32, which holds it exactly."""
+    tree = tree_from_names(dict(tree.named_parameters()) if isinstance(tree, Params) else tree)
+
+    def to_np(val):
+        if isinstance(val, Mapping):
+            return {name: to_np(v) for name, v in val.items()}
+        t = val.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    out = {}
+    for name, val in tree.items():
+        if isinstance(val, list):
+            per = [to_np(v) for v in val]
+            out[name] = _stack(per)
+        else:
+            out[name] = to_np(val)
+    return out
+
+
+def _stack(per: list):
+    if isinstance(per[0], Mapping):
+        return {name: _stack([p[name] for p in per]) for name in per[0]}
+    return np.stack(per)
+
+
 def _leaves(tree: Mapping):
     for val in tree.values():
         if isinstance(val, Mapping):
@@ -150,6 +217,41 @@ def _take_layer(tree: Mapping, i: int) -> Dict:
         name: _take_layer(val, i) if isinstance(val, Mapping) else val[i]
         for name, val in tree.items()
     }
+
+
+# ----------------------------------------------------------------------
+# remat policy
+# ----------------------------------------------------------------------
+#: what ``remat="dots"`` saves: the outputs of matrix products (the
+#: counterpart of ``checkpoint_dots_with_no_batch_dims``; the port's
+#: products with a batch dim, the MoE experts' ``bmm``, are saved too)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ModelConfig, grad: bool) -> Callable:
+    """``fn`` under ``cfg.remat`` (``torch.utils.checkpoint``, non-reentrant)
+    while a gradient is wanted (``grad``), else ``fn`` itself:
+    ``"nothing"`` keeps only the block's inputs and runs its forward again
+    in the backward; ``"dots"`` keeps the outputs of its matrix products
+    too; ``"none"`` keeps everything."""
+    if not grad or cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts, _save_dots)
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False, context_fn=ctx)
+    if cfg.remat != "nothing":
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+
+
+def _wants_grad(params: Params) -> bool:
+    return torch.is_grad_enabled() and params.trainable()
 
 
 # ----------------------------------------------------------------------
@@ -199,13 +301,17 @@ def forward(
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int64, device=x.device).expand(B, S)
     blocks = params["blocks"]
+    # each block under the remat policy, as the JAX package's scans are
+    # (not the hybrid's shared attention block, as there)
+    grad = _wants_grad(params)
+    remat = lambda fn: _remat(fn, cfg, grad)
     if cfg.family == "rwkv6":
         for bp in blocks:
-            x, _ = rwkv.rwkv_block(bp, cfg, x)
+            x = remat(lambda x, bp=bp: rwkv.rwkv_block(bp, cfg, x)[0])(x)
     elif cfg.family == "mamba_hybrid":
         sp = params["shared_attn"]
         for i, bp in enumerate(blocks):
-            x, _ = mamba.mamba_block(bp, cfg, x)
+            x = remat(lambda x, bp=bp: mamba.mamba_block(bp, cfg, x)[0])(x)
             if (i + 1) % cfg.attn_every == 0:
                 # the shared attention block (same params every group)
                 x = _self_block(cfg, x, sp, positions)
@@ -214,16 +320,30 @@ def forward(
         per = cfg.cross_attn_every - 1
         for g, cp in enumerate(params["cross_blocks"]):
             for bp in blocks[g * per:(g + 1) * per]:
-                x = _self_block(cfg, x, bp, positions)
-            x = _cross_block(cfg, x, cp, img)
+                x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions))(x)
+            x = remat(lambda x, cp=cp: _cross_block(cfg, x, cp, img))(x)
     else:
         for bp in blocks:
-            x = _self_block(cfg, x, bp, positions)
+            x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions))(x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
     logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"].to(dt))
     return logits.to(torch.float32)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]):
+    """The masked mean of -log_softmax at the labels: (loss, {"loss",
+    "tokens"}).  ``batch`` adds 'labels' (B, S) and optionally
+    'loss_mask' (B, S) to ``forward``'s inputs."""
+    logits = forward(cfg, params, batch)
+    labels = batch["labels"].to(torch.int64)
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
+    loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss, {"loss": loss, "tokens": mask.sum()}
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:

@@ -416,3 +416,116 @@ def test_later_families_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     assert ops.LAUNCHES["flash_attention"] == layers == sum(ops.LAUNCHES.values())
     want = lm.prefill(cfg, cpu, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# the backward kernels (training)
+# ----------------------------------------------------------------------
+#: relative to the largest |plain gradient| of the call (float32: sums in
+#: another order; bf16: the gradients' own rounding)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _rel_errs(got, want):
+    scale = max(float(w.double().abs().max()) for w in want) or 1.0
+    return [float((g.double() - w.double()).abs().max()) / scale for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,B,Hq,Hkv,Sq,Sk,D", [
+    (True, 1, 5, 1, 100, 100, 16), (True, 2, 8, 1, 37, 200, 64), (True, 1, 10, 2, 130, 130, 128),
+    (False, 1, 16, 2, 300, 130, 128), (False, 1, 4, 4, 65, 190, 80), (True, 1, 2, 2, 1, 1, 32),
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, causal, B, Hq, Hkv, Sq, Sk,
+                                                  D):
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
+    )
+
+    rng = np.random.default_rng(Sq + Sk + D)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).to(dtype)
+    q = q.transpose(1, 2)  # strided, as the model hands it over
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).to(dtype)
+            for _ in range(2))
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, causal), rtol=1e-4, atol=1e-4)
+    do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).to(dtype)
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert max(_rel_errs(got, want)) <= BWD_TOL[dtype]
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: repeats exactly
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 7, 64])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_wkv6_bwd_kernel_matches_plain(cuda_device, dtype, T, with_state):
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+
+    rng = np.random.default_rng(T)
+    B, H, D = 2, 3, 64
+    shape = (B, T, H, D)  # strided (B, H, T, D) views, as the model hands them over
+    r, k, v = (torch.as_tensor(rng.normal(size=shape) * 0.5, device=cuda_device)
+               .to(dtype).transpose(1, 2) for _ in range(3))
+    w = torch.as_tensor(rng.uniform(0.7, 0.999, shape), device=cuda_device).to(dtype)
+    w = w.transpose(1, 2)
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).to(dtype)
+    s0 = (torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+          if with_state else None)
+    dy = torch.as_tensor(rng.normal(size=r.shape), device=cuda_device).to(dtype)
+    ds = torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+    dstate = ds if with_state else None
+    got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dstate)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dstate)
+    for g, wnt in zip(got, want):
+        assert max(_rel_errs([g], [wnt])) <= BWD_TOL[dtype]
+
+
+def test_kernel_wrappers_refuse_inputs_that_want_a_gradient(cuda_device):
+    """The bare kernels write their outputs through raw pointers: on CUDA
+    inputs that require a gradient they raise (the output would carry
+    none, and training would go wrong without an error); ``ops`` takes
+    such inputs through the autograd Functions."""
+    q = torch.randn(1, 4, 33, 64, device=cuda_device, requires_grad=True)
+    k = torch.randn(1, 2, 33, 64, device=cuda_device)
+    with pytest.raises(RuntimeError, match="gradient"):
+        flash_attention_cuda(q, k, k, True)
+    r = torch.randn(1, 2, 5, 16, device=cuda_device)
+    u = torch.randn(2, 16, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="gradient"):
+        wkv6_cuda(r, r, r, r.sigmoid(), u)
+    with pytest.raises(ValueError, match="state_out"):
+        ops.wkv6(r, r, r, r.sigmoid(), u, state_out=torch.zeros(1, 2, 16, 16, device=cuda_device))
+    with torch.no_grad():  # serving: no gradient wanted, the bare kernels run
+        flash_attention_cuda(q, k, k, True)
+        wkv6_cuda(r, r, r, r.sigmoid(), u)
+    ops.reset_launches()
+    ops.flash_attention(q, k, k).sum().backward()
+    y, _ = ops.wkv6(r, r, r, r.sigmoid(), u)
+    y.sum().backward()
+    assert q.grad is not None and u.grad is not None and u.grad.abs().max() > 0
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention": 1, "flash_attention_bwd": 1, "wkv6": 1, "wkv6_bwd": 1}
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "rwkv6-7b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda_device, arch):
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get(arch), microbatches=2)
+    cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    cpu_s, card_s = init_train_state(cfg, params=cpu), init_train_state(cfg, params=card)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 33))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1]), "labels": torch.as_tensor(toks[:, 1:])}
+    step = make_train_step(cfg)
+    for _ in range(2):
+        card_s, mc = step(card_s, {n: t.to(cuda_device) for n, t in batch.items()})
+        cpu_s, mh = step(cpu_s, batch)
+        assert abs(float(mc["loss"]) - float(mh["loss"])) <= 1e-5 * abs(float(mh["loss"]))
+    for a, b in zip(card_s["params"].parameters(), cpu_s["params"].parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0, atol=2e-5)

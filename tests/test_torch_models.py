@@ -428,3 +428,121 @@ def test_init_params_draws_from_the_generator_on_the_asked_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tlm.init_params(cfg)
+
+
+# ----------------------------------------------------------------------
+# the backward kernels' plain versions (training)
+# ----------------------------------------------------------------------
+#: float32 gradients, relative to the largest |gradient| of the call
+#: (sums in another order than XLA's)
+BWD_TOL = 1e-4
+
+
+def _close_grads(got, want, msg=""):
+    want = [np.asarray(w, np.float32) for w in want]
+    scale = max(float(np.abs(w).max()) for w in want) or 1.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().float().numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        np.testing.assert_allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL * scale,
+                                   err_msg=f"{msg} gradient {i}")
+
+
+@pytest.mark.parametrize("causal,B,Hq,Hkv,Sq,Sk,D", [
+    (True, 2, 4, 4, 33, 33, 16),  # causal, MHA
+    (True, 1, 6, 2, 20, 45, 32),  # causal, GQA group 3, Sq < Sk
+    (False, 1, 8, 2, 40, 12, 16),  # non-causal cross, Sq > Sk, GQA group 4
+])
+def test_flash_attention_bwd_plain_matches_jax_vjp(causal, B, Hq, Hkv, Sq, Sk, D):
+    q, k, v = _qkv(Sq + Sk, B, Hq, Hkv, Sq, Sk, D)
+    do = np.random.default_rng(D).normal(size=(B, Hq, Sq, D)).astype(np.float32)
+    o, vjp = jax.vjp(lambda a, b, c: jref.mha_reference(a, b, c, causal),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    lse = tref.attention_lse_plain(tq, tk, causal)
+    got = tref.flash_attention_bwd_plain(tq, tk, tv, torch.from_numpy(np.array(o)), lse,
+                                         torch.from_numpy(do), causal)
+    assert [g.shape for g in got] == [tq.shape, tk.shape, tv.shape]
+    _close_grads(got, want, "attention")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_plain_matches_autograd_of_the_plain_forward(causal):
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(3, 2, 6, 3, 17, 29, 16))
+    o = flash_attention_plain(q, k, v, causal)
+    do = torch.from_numpy(np.random.default_rng(4).normal(size=o.shape).astype(np.float32))
+    want = torch.autograd.grad(o, (q, k, v), do)
+    with torch.no_grad():
+        got = tref.flash_attention_bwd_plain(q, k, v, o, tref.attention_lse_plain(q, k, causal),
+                                             do, causal)
+    _close_grads(got, [w.numpy() for w in want], "attention")
+
+
+def _wkv6_bwd_case(seed, B=2, H=3, T=19, D=16):
+    r, k, v, w, u = _wkv6_inputs(seed, B, H, T, D)
+    rng = np.random.default_rng(seed + 1)
+    s0 = rng.normal(size=(B, H, D, D)).astype(np.float32)
+    dy = rng.normal(size=(B, H, T, D)).astype(np.float32)
+    ds = rng.normal(size=(B, H, D, D)).astype(np.float32)
+    return (r, k, v, w, u, s0), dy, ds
+
+
+def test_wkv6_bwd_plain_matches_jax_vjp_with_an_initial_state():
+    """All six gradients (r, k, v, w, u and the initial state) against
+    ``jax.vjp`` of the reference recurrence, the final state's gradient
+    given too."""
+    args, dy, ds = _wkv6_bwd_case(5)
+    _, vjp = jax.vjp(jref.wkv6_reference, *(jnp.asarray(a) for a in args))
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    got = tref.wkv6_bwd_plain(*(torch.from_numpy(a) for a in args), torch.from_numpy(dy),
+                              torch.from_numpy(ds))
+    assert len(got) == 6 and got[-1].dtype == torch.float32
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+        _close_grads([g], [w], name)
+
+
+def test_wkv6_bwd_plain_matches_autograd_of_the_plain_forward():
+    """Without an initial state or a final-state gradient (the model's
+    training call): the plain reverse recurrence equals autograd through
+    ``wkv6_plain``; and with them."""
+    args, dy, ds = _wkv6_bwd_case(6, T=11)
+    for state, dstate in ((False, None), (True, ds)):
+        ins = [torch.from_numpy(a).requires_grad_() for a in args[:5]]
+        s0 = torch.from_numpy(args[5]).requires_grad_() if state else None
+        y, s = wkv6_plain(*ins, s0)
+        outs, grads_out = ((y, s), (torch.from_numpy(dy), torch.from_numpy(dstate))) \
+            if state else ((y,), (torch.from_numpy(dy),))
+        want = torch.autograd.grad(outs, ins + ([s0] if state else []), grads_out)
+        with torch.no_grad():
+            got = tref.wkv6_bwd_plain(*ins, s0, torch.from_numpy(dy),
+                                      None if dstate is None else torch.from_numpy(dstate))
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, want):
+            _close_grads([g], [w.numpy()], name)
+
+
+def test_cpu_gradients_take_the_plain_versions_and_launch_nothing():
+    """On the CPU, autograd differentiates the plain versions through
+    ``ops``; no kernel, forward or backward, is launched."""
+    ops.reset_launches()
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(7, 1, 4, 2, 9, 9, 16))
+    ops.flash_attention(q, k, v).sum().backward()
+    args = [torch.from_numpy(a).requires_grad_() for a in _wkv6_inputs(8, 1, 2, 5, 16)]
+    y, s = ops.wkv6(*args)
+    (y.sum() + s.sum()).backward()
+    assert all(t.grad is not None for t in [q, k, v] + args)
+    assert sum(ops.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="state_out"):
+        ops.wkv6(*args, state_out=torch.zeros(1, 2, 16, 16))
+
+
+def test_backward_kernel_wrappers_refuse_cpu_tensors_before_any_build():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+
+    ops.reset_launches()
+    x = torch.zeros((1, 2, 3, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(x, x, x, x, torch.zeros((1, 2, 3)), x)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv6_bwd_cuda(x, x, x, x, torch.zeros((2, 16)), None, x)
+    assert sum(ops.LAUNCHES.values()) == 0
