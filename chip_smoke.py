@@ -14,10 +14,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    its fused exists_before at row widths 1 to 128, base pointers 0 to 15
    bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
    on strided inputs with its state written in place; the backward
-   kernels of K4 and K5, from the forward kernels' log-sum-exp, at head
-   dims 16 to 128, groups 1, 5 and 8, ragged and non-causal shapes, T 1
-   to 64 with and without a state, and the autograd Functions against
-   the CPU's autograd) and at the shapes
+   kernels of K4 (bf16 on the tensor cores, float32 on the CUDA cores)
+   and K5, from the forward kernels' log-sum-exp, at head dims 16 to 128,
+   groups 1, 5 and 8, ragged, causal-offset and non-causal shapes, T 1 to
+   300 with and without a state and w down to 1e-12, each twice to show
+   it repeats bit for bit, and the autograd Functions against the CPU's
+   autograd) and at the shapes
    the main paths give it (2b: TPC-H q1 and q18 group sums, the q13
    ``o_comment`` dictionary's find and exists_before, q9's ``p_name``
    and q16's ``s_comment`` dictionaries, the tuple hash of lineitem's
@@ -27,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    at head dim 112; Zamba2's shared block: group 1 at 80; the vision
    model's cross-attention: non-causal, 4096 queries over 1600 keys;
    MusicGen: head dim 64), RWKV6-7B's decode recurrence and its prefill
-   shape, the backward kernels at the training shapes of phase 8b), with
-   times and bounds;
+   shape, the backward kernels at the training shapes of phase 8b, their
+   device times summed over every kernel of a call), with times and
+   bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
    frames built on the card, the 22 queries run twice through the
    dataframe API; the segment-sum and substring kernels' launch counts
@@ -168,6 +171,8 @@ MIXTURE = {"web": 1.0, "books": 2.0, "wiki": 1.5, "code": 1.0}
 TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "grad_ssd": 5e-4}
 # Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
 LM_CHECK_TOL = 1e-4
+#: the kernels of training's backward (no TPU counterpart)
+BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd", "wkv6_bwd")
 
 
 def log(*parts) -> None:
@@ -670,10 +675,12 @@ def check_wkv6(torch, args, label: str) -> float:
     return max(err_y, err_s)
 
 
-def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool, strided: bool = False):
+def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool, strided: bool = False,
+                w_low=None):
     """r, k, v, w (B, H, T, D), u, and a float32 state or None; with
     ``strided`` r/k/v/w are (B, H, T, D) views of (B, T, H, D) tensors, as
-    the model hands them over."""
+    the model hands them over; w uniform in [0.7, 0.999), or with ``w_low``
+    log-uniform in [w_low, 0.999)."""
     def normal(*shape, scale=1.0):
         return torch.as_tensor(rng.normal(size=shape) * scale, device=dev)
 
@@ -682,7 +689,9 @@ def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool, strided: b
 
     shape = (B, T, H, D) if strided else (B, H, T, D)
     r, k, v = (heads(normal(*shape, scale=0.5).to(dtype)) for _ in range(3))
-    w = heads(torch.as_tensor(rng.uniform(0.7, 0.999, shape), device=dev).to(dtype))
+    w = (rng.uniform(0.7, 0.999, shape) if w_low is None
+         else np.exp(rng.uniform(np.log(w_low), np.log(0.999), shape)))
+    w = heads(torch.as_tensor(w, device=dev).to(dtype))
     u = normal(H, D, scale=0.1).to(dtype)
     s0 = normal(B, H, D, D).float() if with_state else None
     return [r, k, v, w, u, s0]
@@ -792,42 +801,47 @@ def rel_err(torch, got, want) -> float:
 
 
 def check_attention_bwd(torch, rng, q, k, v, causal: bool, label: str) -> float:
-    """K4's backward kernel on the forward kernel's o and log-sum-exp and a
-    random dO, against the plain backward on the same inputs; twice, to
-    show the result repeats bit for bit (no atomics)."""
+    """K4's backward kernel of q's dtype (bf16: the tensor-core
+    ``flash_attention_bwd_sm90``; float32: the CUDA-core
+    ``flash_attention_bwd``) on the forward kernel's o and log-sum-exp and
+    a random dO, against the plain backward on the same inputs; twice, to
+    show the result repeats bit for bit (no atomics), and only that
+    kernel launched."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
-        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        BWD_KERNELS, attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_fwd_cuda,
     )
 
+    name = BWD_KERNELS[q.dtype]
     o, lse = flash_attention_fwd_cuda(q, k, v, causal)
     lse_err, lse_ok = allclose_err(torch, lse, attention_lse_plain(q, k, causal), LSE_TOL)
     do = torch.as_tensor(rng.normal(size=tuple(o.shape)), device=q.device).to(q.dtype)
-    before = build.LAUNCHES["flash_attention_bwd"]
+    before = dict(build.LAUNCHES)
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
-    launched = build.LAUNCHES["flash_attention_bwd"] - before
+    launched = {n: c - before[n] for n, c in build.LAUNCHES.items() if c != before[n]}
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
     tol = BWD_TOL[str(q.dtype).replace("torch.", "")]
     scale = max(float(w.to(torch.float64).abs().max()) for w in want) or 1.0
     errs = [max_abs_err(torch, g, w) / scale for g, w in zip(got, want)]
     same = all(torch.equal(a, b) for a, b in zip(got, again))
-    ok = max(errs) <= tol and lse_ok and same and launched == 2
-    log(f"  flash_attention_bwd {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
+    ok = max(errs) <= tol and lse_ok and same and launched == {name: 2}
+    log(f"  {name} {label}: q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype} "
         f"causal={causal} rel err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tol {tol}), "
         f"lse max_abs_err {lse_err:.3e} (tol {LSE_TOL}), repeats={same} "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
-        raise AssertionError(f"flash_attention_bwd kernel disagrees with its plain version at {label}")
+        raise AssertionError(f"{name} kernel disagrees with its plain version at {label} "
+                             f"(launches {launched})")
     return max(errs)
 
 
 def check_wkv6_bwd(torch, rng, args, label: str, with_dstate: bool) -> float:
     """K5's backward kernel against the plain reverse recurrence on the same
     inputs and a random dy (and gradient of the final state): all six
-    gradients."""
+    gradients; twice, to show the result repeats bit for bit."""
     from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
 
     r, k, v, w, u, s0 = args
@@ -837,16 +851,19 @@ def check_wkv6_bwd(torch, rng, args, label: str, with_dstate: bool) -> float:
     dst = (torch.as_tensor(rng.normal(size=(B, H, D, D)), device=dev).float()
            if with_dstate else None)
     got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dst)
+    again = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dst)
     want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dst)
     torch.cuda.synchronize()
     tol = BWD_TOL[str(r.dtype).replace("torch.", "")]
     names = ("dr", "dk", "dv", "dw", "du", "ds0")
     errs = [rel_err(torch, g, w_) for g, w_ in zip(got, want)]
-    ok = max(errs) <= tol
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = max(errs) <= tol and same
     log(f"  wkv6_bwd {label}: r {tuple(r.shape)} strides {r.stride()} {r.dtype} "
-        f"state={'yes' if s0 is not None else 'no'} dstate={'yes' if with_dstate else 'no'} "
+        f"min w {float(w.min()):.3g} state={'yes' if s0 is not None else 'no'} "
+        f"dstate={'yes' if with_dstate else 'no'} "
         + " ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
-        + f" (rel, tol {tol}) {'ok' if ok else 'MISMATCH'}")
+        + f" (rel, tol {tol}) repeats={same} {'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError(f"wkv6_bwd kernel disagrees with its plain version at {label}")
     return max(errs)
@@ -904,8 +921,9 @@ def check_autograd_functions(torch, rng, dev) -> None:
 
 
 def bwd_edge_phase(torch, dev) -> None:
-    log("phase 2a: edge shapes of the backward kernels (K4: flash_attention_bwd, on the "
-        "forward kernels' log-sum-exp; K5: wkv6_bwd), and the autograd Functions")
+    log("phase 2a: edge shapes of the backward kernels (K4: flash_attention_bwd_sm90 for bf16, "
+        "flash_attention_bwd for f32, on the forward kernels' log-sum-exp; K5: wkv6_bwd), and "
+        "the autograd Functions")
     rng = np.random.default_rng(13)
     for dtype in (torch.float32, torch.bfloat16):
         # (B, Hq, Hkv, Sq, Sk, D): head dims 16 to 128, groups 1, 5 and 8,
@@ -914,17 +932,24 @@ def bwd_edge_phase(torch, dev) -> None:
                                       (1, 10, 2, 130, 130, 128), (1, 4, 4, 65, 190, 80),
                                       (1, 5, 5, 127, 300, 96), (1, 8, 8, 129, 129, 112),
                                       (1, 16, 2, 300, 130, 128), (1, 2, 2, 1, 1, 32),
-                                      (2, 5, 1, 64, 64, 48), (1, 8, 1, 200, 77, 112)]:
+                                      (2, 5, 1, 64, 64, 48), (1, 8, 1, 200, 77, 112),
+                                      # several key and query tiles, the causal
+                                      # offset across them, Qwen3-14B's heads
+                                      (1, 40, 8, 257, 513, 128), (1, 5, 1, 600, 600, 64)]:
             q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).to(dtype)
             k = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
             v = torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).to(dtype)
             for causal in ((True, False) if Sq <= Sk else (False,)):
                 check_attention_bwd(torch, rng, q.transpose(1, 2), k, v, causal, "edge")
+        # T 1, T not a multiple of the 16-step chunk, T past several of the
+        # boundary kernel's stages; every third case with w down to 1e-12
         for i, (B, H, T, D) in enumerate([(1, 2, 1, 16), (3, 5, 7, 64), (2, 4, 64, 64),
-                                          (1, 2, 7, 128), (2, 3, 33, 32), (1, 4, 17, 64)]):
+                                          (1, 2, 7, 128), (2, 3, 33, 32), (1, 4, 17, 64),
+                                          (1, 3, 300, 64), (1, 2, 129, 128), (1, 3, 257, 16)]):
             for with_state in (False, True):
                 args = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state,
-                                   strided=bool((i + with_state) % 2))
+                                   strided=bool((i + with_state) % 2),
+                                   w_low=1e-12 if i % 3 == 1 else None)
                 check_wkv6_bwd(torch, rng, args, "edge", with_dstate=with_state)
     check_autograd_functions(torch, rng, dev)
 
@@ -1068,12 +1093,15 @@ def lm_main_shape_phase(torch, dev) -> dict:
 def bwd_main_shape_phase(torch, dev) -> dict:
     """The backward kernels at the training shapes of phase 8(b), with the
     plain backward on the same inputs and the library's backward: K4's at
-    Qwen3-14B's (bf16, then float32 copies), K5's at RWKV6-7B's."""
+    Qwen3-14B's (bf16 on the tensor-core kernel, then float32 copies on
+    the CUDA-core one), K5's at RWKV6-7B's.  Device times sum every kernel
+    of one call (each kernel's mean launch, by name prefix)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_fwd_cuda,
+        BWD_KERNELS, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
     )
     from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
 
@@ -1082,8 +1110,11 @@ def bwd_main_shape_phase(torch, dev) -> dict:
     qc = get("qwen3-14b")
     B, Hq, Hkv, S, D = 1, qc.n_heads, qc.n_kv_heads, TRAIN_SEQ, qc.hd
     q, k, v = attention_inputs(torch, rng, dev, B, Hq, Hkv, S, S, D)
-    rows = []
-    for dtype, peak in ((torch.bfloat16, PEAK_BF16_OPS_PER_S), (torch.float32, PEAK_OPS_PER_S)):
+    out = {}
+    # the kernels of one call: fa_bwd_sm90_{delta,dkdv,dq}_kernel (bf16),
+    # fa_bwd_{delta,dkdv,dq}_kernel (float32)
+    for dtype, peak, prefix in ((torch.bfloat16, PEAK_BF16_OPS_PER_S, "fa_bwd_sm90_"),
+                                (torch.float32, PEAK_OPS_PER_S, "fa_bwd_")):
         q, k, v = (t.to(dtype) for t in (q, k, v))  # q keeps the model's strides
         o, lse = flash_attention_fwd_cuda(q, k, v, True)
         do = torch.as_tensor(rng.normal(size=tuple(o.shape)), device=dev).to(dtype)
@@ -1097,22 +1128,22 @@ def bwd_main_shape_phase(torch, dev) -> dict:
         b_ms, b_by = bound_ms(nbytes, nops, peak)
         bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
         k_ms = cuda_ms(torch, bwd, LM_REPS if dtype == torch.bfloat16 else 3)
-        d_ms = device_ms(torch, bwd, "fa_bwd_", 3, per_call=True)
+        d_ms = device_ms(torch, bwd, prefix, 3, per_call=True)
         p_ms = cuda_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True), 2)
         # the library: scaled_dot_product_attention's backward alone, on the same inputs
         qd, kd, vd = (t.detach().contiguous().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True, enable_gqa=True)
-        l_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qd, kd, vd), do,
+        y = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True, enable_gqa=True)
+        l_ms = cuda_ms(torch, lambda: torch.autograd.grad(y, (qd, kd, vd), do,
                                                           retain_graph=True), 3)
-        del out, qd, kd, vd
-        row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-                   library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+        del y, qd, kd, vd
+        row = dict(label=label, kernel=BWD_KERNELS[dtype], max_abs_err=err, ms=k_ms,
+                   device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes, ops=nops)
         log("   ", json.dumps(row))
-        rows.append(row)
+        out[BWD_KERNELS[dtype]] = [row]
         del o, lse, do
     del q, k, v
     torch.cuda.empty_cache()
-    out = {"flash_attention_bwd": rows}
 
     rc = get("rwkv6-7b")
     H, D = rc.n_heads, rc.d_model // rc.n_heads
@@ -1123,7 +1154,8 @@ def bwd_main_shape_phase(torch, dev) -> dict:
     dy = torch.as_tensor(rng.normal(size=tuple(args[0].shape)), device=dev).to(torch.bfloat16)
     bwd = lambda: wkv6_bwd_cuda(*args, dy)
     k_ms = cuda_ms(torch, bwd, 3)
-    d_ms = device_ms(torch, bwd, "wkv6_bwd_kernel", 3)
+    # wkv6_bwd_{states,rows,cols,du}_kernel
+    d_ms = device_ms(torch, bwd, "wkv6_bwd_", 3, per_call=True)
     p_ms = cuda_ms(torch, lambda: wkv6_bwd_plain(*args, dy), 1)
     n = 1 * H * TRAIN_SEQ
     # the forward recurrence again (P_t), G's recurrence, and dr, dk, dv,
@@ -1473,12 +1505,15 @@ def train_launches(cfg) -> dict:
     """Kernel launches of one microbatch's forward and backward under
     ``remat="nothing"``: a checkpointed block runs its forward twice (once
     more in the backward), the hybrid's shared attention block, which is
-    not checkpointed, once; one backward launch per layer."""
+    not checkpointed, once; one backward launch per layer (K4's of the
+    compute dtype: bf16 on the tensor cores, float32 on the CUDA cores)."""
     if cfg.family == "rwkv6":
         return {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
-    fwd = "flash_attention_sm90" if cfg.compute_dtype == "bfloat16" else "flash_attention"
+    bf16 = cfg.compute_dtype == "bfloat16"
+    fwd = "flash_attention_sm90" if bf16 else "flash_attention"
+    bwd = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd"
     n = attention_layers(cfg)
-    return {fwd: n if cfg.family == "mamba_hybrid" else 2 * n, "flash_attention_bwd": n}
+    return {fwd: n if cfg.family == "mamba_hybrid" else 2 * n, bwd: n}
 
 
 def train_batch(torch, cfg, dev, B: int, S: int, seed: int) -> dict:
@@ -1522,7 +1557,8 @@ def train_check_phase(torch, ops, dev) -> None:
     gradient leaf of the next microbatch and one more step's metrics.
     The weights after a step are not compared element by element: Adam's
     first steps divide each gradient by its own magnitude, so a weight
-    whose gradient is at rounding level may move by up to lr either way."""
+    whose gradient is at rounding level may move by up to lr either way.
+    Returns each family's launches in its first microbatch."""
     import copy
     import shutil
 
@@ -1562,6 +1598,7 @@ def train_check_phase(torch, ops, dev) -> None:
                 raise AssertionError(f"{arch}: step {key} {a!r} on the card, {b!r} on the CPU")
         return card_s, cpu_s
 
+    microbatch_launches = {}
     for arch in ARCHS:
         cfg = reduced(get(arch), **({"n_kv_heads": 2} if arch == "qwen3-14b" else {}))
         cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(3), device="cpu")
@@ -1572,6 +1609,7 @@ def train_check_phase(torch, ops, dev) -> None:
         batches = [train_batch(torch, cfg, "cpu", 2, 64, seed) for seed in (0, 1)]
         step = make_train_step(cfg)
         loss_c, loss_h, err1, launched = agree("from the same weights", card_s, cpu_s, batches[0])
+        microbatch_launches[arch] = launched
         card_s, cpu_s = step_both(card_s, cpu_s, batches[0])
         # the card's checkpoint, restored on the CPU, is the card's state
         shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1587,6 +1625,7 @@ def train_check_phase(torch, ops, dev) -> None:
             f"launches {launched}; loss {loss_c:.6f} (CPU {loss_h:.6f}); gradients rel err "
             f"{err1:.3e}, and {err2:.3e} from the card's checkpoint restored on the CPU "
             f"(bit-equal); both steps' loss and grad norm agree ok")
+    return microbatch_launches
 
 
 def train_run(torch, ops, arch: str, depth: int, batch: int, seed: int, dev) -> dict:
@@ -1906,7 +1945,7 @@ def main() -> int:
     lm_runs = lm_phase(torch, ops, dev, args.seed)
     f32_runs = lm_check_phase(torch, ops, dev)
     # phase 8: training, card vs CPU, then at full width
-    train_check_phase(torch, ops, dev)
+    train_f32 = train_check_phase(torch, ops, dev)
     train_runs = train_phase(torch, ops, dev, args.seed)
     # launches of each kernel in its main-path run: K4's bf16 kernel in
     # Qwen3-14B's prefill, its f32 kernel in the reduced f32 Qwen3-14B
@@ -1917,8 +1956,11 @@ def main() -> int:
     launches["flash_attention"] = f32_runs["qwen3-14b"]["flash_attention"]
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
     launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
-    # the backward kernels: in one train step of phase 8b
-    launches["flash_attention_bwd"] = train_runs["qwen3-14b"]["launches"]["flash_attention_bwd"]
+    # the backward kernels: bf16 K4 and K5 in one train step of phase 8b,
+    # float32 K4 in one reduced float32 Qwen3-14B microbatch of phase 8a
+    launches["flash_attention_bwd_sm90"] = (
+        train_runs["qwen3-14b"]["launches"]["flash_attention_bwd_sm90"])
+    launches["flash_attention_bwd"] = train_f32["qwen3-14b"]["flash_attention_bwd"]
     launches["wkv6_bwd"] = train_runs["rwkv6-7b"]["launches"]["wkv6_bwd"]
     shapes.update(lm_shapes)
     for arch, run in lm_runs.items():
@@ -1942,6 +1984,8 @@ def main() -> int:
         # the backward kernels have no TPU counterpart (the JAX package
         # differentiates through XLA): "replaces" names the TPU kernel
         # whose function they differentiate
+        "flash_attention_bwd_sm90": ("src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
+                                     "src/repro/kernels/flash_attention.py:65"),
         "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/flash_attention.py:65"),
         "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu", "src/repro/kernels/wkv6.py:51"),
@@ -1957,10 +2001,9 @@ def main() -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
-            "backward": name.endswith("_bwd"),
+            "backward": name in BACKWARD_KERNELS,
             # K1's q1 shapes and its mid path, K4's later families' shapes,
-            # K5's prefill shape (0 launches on the serving path), K4's
-            # backward on float32 inputs
+            # K5's prefill shape (0 launches on the serving path)
             "other_shapes": [{key: r[key] for key in timed} for r in rows[1:]],
         })
     idle = [k["name"] for k in kernels if k["launches"] == 0]

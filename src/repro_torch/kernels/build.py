@@ -52,7 +52,10 @@ SIGNATURES = {
     "hash32x2": ("repro_hash32x2", [_P, _L, _I, _P, _P]),
     # the backward kernels of K4 and K5 (training; no TPU counterpart)
     "flash_attention_bwd": (
-        "repro_flash_attention_bwd", [_I] + [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
+        "repro_flash_attention_bwd", [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
+    ),
+    "flash_attention_bwd_sm90": (
+        "repro_flash_attention_bwd_sm90", [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
     ),
     "wkv6_bwd": ("repro_wkv6_bwd", [_I] + [_P] * 17 + [ctypes.POINTER(_L), _P]),
 }

@@ -1,6 +1,8 @@
-// Backward of causal or full grouped-query attention: dq, dk and dv from
-// q, k, v, the forward's output o, its gradient dO and the forward's
-// per-row log-sum-exp.
+// Backward of causal or full grouped-query attention in float32: dq, dk
+// and dv from q, k, v, the forward's output o, its gradient dO and the
+// forward's per-row log-sum-exp.  bf16 runs csrc/flash_attention_bwd_sm90.cu
+// on the tensor cores; this kernel, on the CUDA cores, is the one that
+// meets the float32 tolerance (the tensor cores' TF32 would not).
 //
 // The TPU kernel `flash_attention_pallas` (src/repro/kernels/flash_attention.py)
 // has no backward: the JAX package differentiates through XLA attention.
@@ -34,23 +36,18 @@
 // for a 64 x 64 product, columns tx + 16 j (j < 4); for a 64 x D one,
 // columns tx + 16 c (c < D / 16).  Tiles sit in shared memory as float32,
 // padded to D + 1 (and 65) so a warp's reads fall in distinct banks.
-// Inputs are float32 or bfloat16; everything is computed in float32 and
-// the gradients are written in the inputs' dtype.
+// Inputs, arithmetic and gradients are float32.
 //
 // What bounds it on an H100: operations.  Qwen3-14B's training shape (B 1,
 // Hq 40, Hkv 8, S 4096, D 128, causal) needs five products of 2 S^2 D a
-// head, halved by the mask: 429.5 GFLOP, 0.434 ms at the 989 TFLOP/s of
-// the bf16 tensor cores, 6.41 ms at the 67 TFLOP/s of float32 on the CUDA
-// cores.  This first version runs seven products (P and dP are computed
-// in both kernels) in float32 on the CUDA cores, for bf16 inputs too;
-// the tensor cores (wgmma, as the forward) are the way to the bf16
-// bound, in a later version.
+// head, halved by the mask: 429.5 GFLOP, 6.41 ms at the 67 TFLOP/s of
+// float32 on the CUDA cores.  It runs seven products (P and dP are
+// computed in both kernels).
 //
 // C interface: one function, loaded with ctypes.  It launches on the given
 // stream, allocates nothing (Delta goes to a buffer the caller passes),
 // and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -59,13 +56,6 @@ constexpr int kB = 64;  // rows of a query tile and of a key tile
 constexpr int kThreads = 256;
 constexpr int kLdP = kB + 1;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {  // in elements; the last dim is contiguous
   long long b, h, s;
@@ -84,14 +74,14 @@ constexpr size_t smem_bytes() {  // four (64, D + 1) tiles, two (64, 65) tiles, 
 
 // Rows [row0, row0 + 64) of a (S, D) slice into a (64, D + 1) float tile;
 // rows at or past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, long long ss,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, long long ss,
                                           int row0, int S) {
   constexpr int LD = D + 1;
   for (int e = threadIdx.x; e < kB * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int row = row0 + r;
-    dst[r * LD + c] = row < S ? to_f(src[row * ss + c]) : 0.f;
+    dst[r * LD + c] = row < S ? src[row * ss + c] : 0.f;
   }
 }
 
@@ -107,27 +97,27 @@ __device__ __forceinline__ void load_rows(float* sL, float* sD, const float* __r
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) fa_bwd_delta_kernel(const T* __restrict__ o,
-                                                         const T* __restrict__ dO,
+template <int D>
+__global__ void __launch_bounds__(kThreads) fa_bwd_delta_kernel(const float* __restrict__ o,
+                                                         const float* __restrict__ dO,
                                                          float* __restrict__ delta, Args a) {
   const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
   const int h = blockIdx.y, b = blockIdx.z;
   if (row >= a.Sq) return;
-  const T* op = o + b * a.o.b + h * a.o.h + row * a.o.s;
-  const T* gp = dO + b * a.dO.b + h * a.dO.h + row * a.dO.s;
+  const float* op = o + b * a.o.b + h * a.o.h + row * a.o.s;
+  const float* gp = dO + b * a.dO.b + h * a.dO.h + row * a.dO.s;
   float acc = 0.f;
-  for (int c = lane; c < D; c += 32) acc = fmaf(to_f(op[c]), to_f(gp[c]), acc);
+  for (int c = lane; c < D; c += 32) acc = fmaf(op[c], gp[c], acc);
 #pragma unroll
   for (int sh = 16; sh > 0; sh >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, sh);
   if (lane == 0) delta[(static_cast<size_t>(b) * a.Hq + h) * a.Sq + row] = acc;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, Args a) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, Args a) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -144,8 +134,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = kt * kB;
   const int offset = a.Sk - a.Sq;
-  load_tile<T, D>(sK, k + b * a.k.b + hk * a.k.h, a.k.s, k0, a.Sk);
-  load_tile<T, D>(sV, v + b * a.v.b + hk * a.v.h, a.v.s, k0, a.Sk);
+  load_tile<D>(sK, k + b * a.k.b + hk * a.k.h, a.k.s, k0, a.Sk);
+  load_tile<D>(sV, v + b * a.v.b + hk * a.v.h, a.v.s, k0, a.Sk);
 
   float gk[4][DC], gv[4][DC];
 #pragma unroll
@@ -161,8 +151,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(
     for (int qt = qt0; qt < nq; ++qt) {
       const int q0 = qt * kB;
       __syncthreads();  // the previous pair is done with sQ, sG, sP, sS, sL, sD
-      load_tile<T, D>(sQ, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.Sq);
-      load_tile<T, D>(sG, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.Sq);
+      load_tile<D>(sQ, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.Sq);
+      load_tile<D>(sG, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.Sq);
       load_rows(sL, sD, lse, delta, bh, a.Sq, q0);
       __syncthreads();
 
@@ -238,18 +228,18 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dkdv_kernel(
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const size_t at = base + static_cast<size_t>(key) * D + tx + 16 * c;
-        dk[at] = from_f<T>(gk[i][c] * a.scale);
-        dv[at] = from_f<T>(gv[i][c]);
+        dk[at] = gk[i][c] * a.scale;
+        dv[at] = gv[i][c];
       }
     }
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, Args a) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dO, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, Args a) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;
   extern __shared__ float smem[];
@@ -267,8 +257,8 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(
   const int q0 = qt * kB;
   const int offset = a.Sk - a.Sq;
   const size_t bh = static_cast<size_t>(b) * a.Hq + h;
-  load_tile<T, D>(sQ, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.Sq);
-  load_tile<T, D>(sG, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.Sq);
+  load_tile<D>(sQ, q + b * a.q.b + h * a.q.h, a.q.s, q0, a.Sq);
+  load_tile<D>(sG, dO + b * a.dO.b + h * a.dO.h, a.dO.s, q0, a.Sq);
   load_rows(sL, sD, lse, delta, bh, a.Sq, q0);
 
   float gq[4][DC];
@@ -279,13 +269,13 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(
 
   int nk = (a.Sk + kB - 1) / kB;
   if (a.causal) nk = min(nk, (min(q0 + kB, a.Sq) - 1 + offset) / kB + 1);
-  const T* kb = k + b * a.k.b + hk * a.k.h;
-  const T* vb = v + b * a.v.b + hk * a.v.h;
+  const float* kb = k + b * a.k.b + hk * a.k.h;
+  const float* vb = v + b * a.v.b + hk * a.v.h;
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kB;
     __syncthreads();  // the previous tile is done with sK and sS
-    load_tile<T, D>(sK, kb, a.k.s, k0, a.Sk);
-    load_tile<T, D>(sV, vb, a.v.s, k0, a.Sk);
+    load_tile<D>(sK, kb, a.k.s, k0, a.Sk);
+    load_tile<D>(sV, vb, a.v.s, k0, a.Sk);
     __syncthreads();
 
     // S and dP of the tile: query rows ty + 16 i, key columns tx + 16 j
@@ -343,14 +333,14 @@ __global__ void __launch_bounds__(kThreads) fa_bwd_dq_kernel(
     }
   }
 
-  T* out = dq + bh * a.Sq * D;
+  float* out = dq + bh * a.Sq * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row < a.Sq) {
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        out[static_cast<size_t>(row) * D + tx + 16 * c] = from_f<T>(gq[i][c] * a.scale);
+        out[static_cast<size_t>(row) * D + tx + 16 * c] = gq[i][c] * a.scale;
     }
   }
 }
@@ -366,36 +356,37 @@ int allow_smem(Kern kern, size_t bytes, bool& done) {  // above 48 KB needs the 
   return 0;
 }
 
-template <typename T, int D>
+template <int D>
 int launch_d(const void* q, const void* k, const void* v, const void* o, const void* dO,
              const float* lse, float* delta, void* dq, void* dk, void* dv, int B,
              const Args& a, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<D>();
   static bool kv_set = false, q_set = false;
-  int err = allow_smem(fa_bwd_dkdv_kernel<T, D>, smem, kv_set);
-  if (err == 0) err = allow_smem(fa_bwd_dq_kernel<T, D>, smem, q_set);
+  int err = allow_smem(fa_bwd_dkdv_kernel<D>, smem, kv_set);
+  if (err == 0) err = allow_smem(fa_bwd_dq_kernel<D>, smem, q_set);
   if (err != 0) return err;
-  const T* Q = static_cast<const T*>(q);
-  const T* K = static_cast<const T*>(k);
-  const T* V = static_cast<const T*>(v);
-  const T* G = static_cast<const T*>(dO);
+  const float* Q = static_cast<const float*>(q);
+  const float* K = static_cast<const float*>(k);
+  const float* V = static_cast<const float*>(v);
+  const float* G = static_cast<const float*>(dO);
   const dim3 rows((a.Sq + kThreads / 32 - 1) / (kThreads / 32), a.Hq, B);
-  fa_bwd_delta_kernel<T, D><<<rows, kThreads, 0, s>>>(static_cast<const T*>(o), G, delta, a);
+  fa_bwd_delta_kernel<D><<<rows, kThreads, 0, s>>>(static_cast<const float*>(o), G, delta, a);
   const dim3 keys((a.Sk + kB - 1) / kB, a.Hkv, B);
-  fa_bwd_dkdv_kernel<T, D><<<keys, kThreads, smem, s>>>(Q, K, V, G, lse, delta, static_cast<T*>(dk),
-                                                 static_cast<T*>(dv), a);
+  fa_bwd_dkdv_kernel<D><<<keys, kThreads, smem, s>>>(Q, K, V, G, lse, delta,
+                                                   static_cast<float*>(dk),
+                                                 static_cast<float*>(dv), a);
   const dim3 queries((a.Sq + kB - 1) / kB, a.Hq, B);
-  fa_bwd_dq_kernel<T, D><<<queries, kThreads, smem, s>>>(Q, K, V, G, lse, delta, static_cast<T*>(dq), a);
+  fa_bwd_dq_kernel<D><<<queries, kThreads, smem, s>>>(Q, K, V, G, lse, delta,
+                                                    static_cast<float*>(dq), a);
   return 0;
 }
 
-template <typename T>
 int launch(int D, const void* q, const void* k, const void* v, const void* o, const void* dO,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int B, const Args& a,
            cudaStream_t s) {
 #define REPRO_FAB_CASE(DD) \
   case DD:                 \
-    return launch_d<T, DD>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, a, s);
+    return launch_d<DD>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, a, s);
   switch (D) {
     REPRO_FAB_CASE(16)
     REPRO_FAB_CASE(32)
@@ -412,14 +403,14 @@ int launch(int D, const void* q, const void* k, const void* v, const void* o, co
 
 }  // namespace
 
-// dtype of q/k/v/o/dO/dq/dk/dv: 0 = float32, 1 = bfloat16.  dims holds 21
-// values: B, Hq, Hkv, Sq, Sk, D, then the (batch, head, seq) element
-// strides of q, k, v, o and dO (the last dim contiguous).  lse is the
-// forward's float32 (B, Hq, Sq) log-sum-exp; delta a float32 (B, Hq, Sq)
-// buffer this call fills.  dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk, D)
-// are written contiguous.  D a multiple of 16 in [16, 128]; Hq a multiple
-// of Hkv; Sq, Sk >= 1; causal needs Sq <= Sk.
-extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+// float32 q, k, v, o, dO, dq, dk and dv.  dims holds 21 values: B, Hq,
+// Hkv, Sq, Sk, D, then the (batch, head, seq) element strides of q, k, v,
+// o and dO (the last dim contiguous).  lse is the forward's float32
+// (B, Hq, Sq) log-sum-exp; delta a float32 (B, Hq, Sq) buffer this call
+// fills.  dq (B, Hq, Sq, D) and dk, dv (B, Hkv, Sk, D) are written
+// contiguous.  D a multiple of 16 in [16, 128]; Hq a multiple of Hkv;
+// Sq, Sk >= 1; causal needs Sq <= Sk.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* dO, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv,
                                          const long long* dims, float scale, int causal,
@@ -439,12 +430,7 @@ extern "C" int repro_flash_attention_bwd(int dtype, const void* q, const void* k
   if (B > 65535 || a.Hq > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const float* L = static_cast<const float*>(lse);
   float* De = static_cast<float*>(delta);
-  int err;
-  switch (dtype) {
-    case 0: err = launch<float>(D, q, k, v, o, dO, L, De, dq, dk, dv, B, a, s); break;
-    case 1: err = launch<__nv_bfloat16>(D, q, k, v, o, dO, L, De, dq, dk, dv, B, a, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int err = launch(D, q, k, v, o, dO, L, De, dq, dk, dv, B, a, s);
   if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

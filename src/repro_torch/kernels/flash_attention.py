@@ -23,8 +23,10 @@ The backward (training) has no TPU counterpart: the JAX package
 differentiates through XLA attention.  ``FlashAttentionFn`` is the
 autograd Function of the card: its forward launches the forward kernel
 with a float32 log-sum-exp output (``flash_attention_fwd_cuda``), its
-backward the hand-written ``csrc/flash_attention_bwd.cu``
-(``flash_attention_bwd_cuda``); ``flash_attention_bwd_plain`` is the
+backward a hand-written one (``flash_attention_bwd_cuda``), split by
+dtype as the forward is (``BWD_KERNELS``): bf16 on the tensor cores
+(``csrc/flash_attention_bwd_sm90.cu``), f32 on the CUDA cores
+(``csrc/flash_attention_bwd.cu``); ``flash_attention_bwd_plain`` is the
 same arithmetic in plain PyTorch.  ``flash_attention_cuda`` itself
 raises on inputs that want a gradient: its output would have none.
 """
@@ -32,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -43,6 +46,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = tuple(range(16, 129, 16))
 #: logit of a masked position, as in the TPU kernel
 NEG_INF = -1e30
+#: the backward kernel of each input dtype: bf16 on the tensor cores, f32
+#: on the CUDA cores (the only one within the f32 tolerance)
+BWD_KERNELS = {torch.bfloat16: "flash_attention_bwd_sm90", torch.float32: "flash_attention_bwd"}
+#: the tensor-core backward's lse/Delta rows are Sq rounded up to this
+#: (kRowPad in the source: its query tiles are 64 and 192 rows)
+BWD_ROW_PAD = 192
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
@@ -247,14 +256,43 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, causal, lse=True)
 
 
+def bwd_ld_elements(B: int, Hq: int, Sq: int) -> int:
+    """float32 elements of the tensor-core backward's lse/Delta buffer:
+    (B Hq, 2, Sq rounded up to BWD_ROW_PAD)."""
+    return B * Hq * 2 * (-(-Sq // BWD_ROW_PAD) * BWD_ROW_PAD)
+
+
+class BwdPlan(NamedTuple):
+    """What the backward launches: the kernel, the float32 buffer it fills
+    (lse/Delta rows, or Delta), and q, k, v, do as the kernel reads them."""
+    name: str
+    rows: Tuple[int, ...]
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    do: torch.Tensor
+
+
+def bwd_launch_plan(q, k, v, do) -> BwdPlan:
+    """The backward kernel of q's dtype (``BWD_KERNELS``) and its
+    arguments; bf16 layouts the copy engine cannot describe are copied."""
+    name = BWD_KERNELS[q.dtype]
+    B, Hq, Sq, _ = q.shape
+    if name == "flash_attention_bwd_sm90":
+        q, k, v, do = (_tma_ready(t) for t in (q, k, v, do))
+        return BwdPlan(name, (bwd_ld_elements(B, Hq, Sq),), q, k, v, do)
+    return BwdPlan(name, (B, Hq, Sq), q, k, v, do)
+
+
 def flash_attention_bwd_cuda(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, lse: torch.Tensor,
     do: torch.Tensor, causal: bool = True,
 ):
-    """``flash_attention_bwd_plain`` on the card, through the CUDA kernel
-    (``csrc/flash_attention_bwd.cu``): dq (B, Hq, Sq, D) and dk, dv
+    """``flash_attention_bwd_plain`` on the card, through the backward
+    kernel of q's dtype (``BWD_KERNELS``): dq (B, Hq, Sq, D) and dk, dv
     (B, Hkv, Sk, D), contiguous, in q's dtype.  q, k, v, o and do take any
-    batch, head and sequence strides with a contiguous last dim."""
+    batch, head and sequence strides with a contiguous last dim (bf16
+    layouts the copy engine cannot describe are copied first)."""
     _check_shapes(q, k, v, causal)
     _check_kernel_args(q, k, v)
     B, Hq, Sq, D = q.shape
@@ -274,19 +312,19 @@ def flash_attention_bwd_cuda(
     dv = torch.empty_like(dk)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    name, rows, q, k, v, do = bwd_launch_plan(q, k, v, do)
+    rows = torch.empty(rows, dtype=torch.float32, device=q.device)
     dims = [B, Hq, Hkv, Sq, Sk, D] + [s for t in (q, k, v, o, do) for s in t.stride()[:3]]
-    fn = build.kernel("flash_attention_bwd")
+    fn = build.kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), (ctypes.c_longlong * 21)(*dims), float(1.0 / math.sqrt(D)),
-            int(causal), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), rows.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            (ctypes.c_longlong * 21)(*dims), float(1.0 / math.sqrt(D)), int(causal), stream,
         )
-        build.LAUNCHES["flash_attention_bwd"] += 1
-    build.check("flash_attention_bwd", err)
+        build.LAUNCHES[name] += 1
+    build.check(name, err)
     return dq, dk, dv
 
 

@@ -32,10 +32,12 @@ The backward (training) has no TPU counterpart: the JAX package
 differentiates through its XLA form.  ``Wkv6Fn`` is the autograd Function
 of the card: the forward kernel, then the hand-written backward kernel
 ``csrc/wkv6_bwd.cu`` (``wkv6_bwd_cuda``), which gives the gradients of r,
-k, v, w, u and the initial state; ``wkv6_bwd_plain`` is the reverse
-recurrence in plain PyTorch.  ``wkv6_cuda`` itself raises on inputs that
-want a gradient: its outputs would have none (and ``u`` reaches the
-kernel as a detached float32 copy).
+k, v, w, u and the initial state chunk-parallel: the states at the
+boundaries of chunks of BWD_CHUNK steps first, then the gradients of
+every group of BWD_GROUP chunks at once (``bwd_scratch_sizes``);
+``wkv6_bwd_plain`` is the reverse recurrence in plain PyTorch.
+``wkv6_cuda`` itself raises on inputs that want a gradient: its outputs
+would have none (and ``u`` reaches the kernel as a detached float32 copy).
 """
 from __future__ import annotations
 
@@ -239,8 +241,19 @@ def _launch(fn, plan, r, k, v, w, u, s0, y, sout, dev) -> int:
 # ----------------------------------------------------------------------
 # backward
 # ----------------------------------------------------------------------
-#: steps between the backward kernel's state checkpoints (kChunk in the source)
+#: steps of a chunk of the backward kernel (kChunk in the source), and
+#: chunks of a group (kGroup), which one block walks from the last
 BWD_CHUNK = 16
+BWD_GROUP = 4
+
+
+def bwd_scratch_sizes(B: int, H: int, T: int, D: int) -> Tuple[int, int, int]:
+    """float32 elements of the backward kernel's scratch: the forward state
+    before each chunk, the state's gradient after each group of chunks,
+    and each chunk's share of du."""
+    chunks = -(-T // BWD_CHUNK)
+    groups = -(-chunks // BWD_GROUP)
+    return B * H * chunks * D * D, B * H * groups * D * D, B * H * chunks * D
 
 
 def wkv6_bwd_plain(
@@ -308,9 +321,8 @@ def wkv6_bwd_cuda(
     """``wkv6_bwd_plain`` on the card, through the CUDA kernel
     (``csrc/wkv6_bwd.cu``).  r, k, v, w and dy take any strides with stride
     1 on D; dr, dk, dv and dw come back as (B, H, T, D) views of (B, T, H, D)
-    tensors, as y does.  The kernel recomputes the forward states from
-    checkpoints every BWD_CHUNK steps, in scratch of
-    B H (ceil(T / BWD_CHUNK) + BWD_CHUNK + 1) D^2 floats alive during the call."""
+    tensors, as y does.  The kernel keeps the states at the chunk
+    boundaries in scratch (``bwd_scratch_sizes``) alive during the call."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6 backward kernel needs CUDA tensors, got {dev}")
@@ -334,10 +346,8 @@ def wkv6_bwd_cuda(
             t.zero_()
         return dr, dk, dv, dw, du.sum(0).to(u.dtype), (
             ds0.zero_() if dstate is None else ds0.copy_(dstate))
-    n_chunks = -(-T // BWD_CHUNK)
-    ckpt = torch.empty((B * H * n_chunks * D * D,), dtype=torch.float32, device=dev)
-    chunk = torch.empty((B * H * BWD_CHUNK * D * D,), dtype=torch.float32, device=dev)
-    gsave = torch.empty((B * H * D * D,), dtype=torch.float32, device=dev)
+    pstates, gstates, du_part = (torch.empty((n,), dtype=torch.float32, device=dev)
+                                 for n in bwd_scratch_sizes(B, H, T, D))
     dims = list(plan.dims)[:16] + list(dy.stride()[:3])
     fn = build.kernel("wkv6_bwd")
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -345,8 +355,8 @@ def wkv6_bwd_cuda(
         err = fn(
             plan.dtype, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), dy.data_ptr(),
             _u_f32(u).data_ptr(), ptr(s0), ptr(dstate), dr.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), ckpt.data_ptr(),
-            chunk.data_ptr(), gsave.data_ptr(), (ctypes.c_longlong * 19)(*dims),
+            dv.data_ptr(), dw.data_ptr(), du.data_ptr(), ds0.data_ptr(), pstates.data_ptr(),
+            gstates.data_ptr(), du_part.data_ptr(), (ctypes.c_longlong * 19)(*dims),
             torch.cuda.current_stream(dev).cuda_stream,
         )
         build.LAUNCHES["wkv6_bwd"] += 1

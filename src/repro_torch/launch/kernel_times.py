@@ -1,5 +1,6 @@
-"""Time K1, K2, K5, RWKV6-7B's decode step and Qwen3-14B's prefill and
-decode step on the card through the public API, and print one JSON line.
+"""Time K1, K2, K5, the backward kernels of K4 and K5, RWKV6-7B's decode
+step and Qwen3-14B's prefill and decode step on the card through the
+public API, and print one JSON line.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_times.py
     PYTHONPATH=<other checkout>/src python3 src/repro_torch/launch/kernel_times.py
@@ -9,7 +10,8 @@ two versions can be compared in turns on one card (A, B, B, A).  It uses
 only what every version of the port has: ``ops.segment_sum``,
 ``ops.substr_find``, ``ops.exists_before``, ``strings.pack_strings``,
 the TPC-H generator's word salad, ``ops.wkv6`` (contiguous inputs, state
-passed) and ``ServeEngine``; where
+passed), ``flash_attention_fwd_cuda``, ``flash_attention_bwd_cuda``,
+``wkv6_bwd_cuda`` and ``ServeEngine``; where
 ``ops.wkv6`` takes ``state_out`` it also times the decode step's own
 call (strided views, the state written over itself).
 
@@ -24,6 +26,13 @@ call (strided views, the state written over itself).
   version has it);
 * K5 at RWKV6-7B's decode shape (B 4, H 64, T 1, D 64, bf16 inputs and
   u, float32 state);
+* the backward kernels at the training shapes: K4's on Qwen3-14B's
+  attention (B 1, Hq 40, Hkv 8, S 4096, D 128, causal, bf16, q strided
+  as the model hands it over, from the forward kernel's o and
+  log-sum-exp) and K5's on RWKV6-7B's (B 1, H 64, T 4096, D 64, bf16,
+  strided, no initial state), each call as ``FlashAttentionFn`` and
+  ``Wkv6Fn`` make it, whatever kernels the version launches for it, and
+  the device time of each of those kernels (``torch.profiler``);
 * RWKV6-7B at full width with random bf16 weights: 16 requests over 4
   slots, the median decode step (host clock; each step ends in the
   argmax's copy to the host);
@@ -40,6 +49,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,6 +71,26 @@ def event_ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps: int = 3) -> dict:
+    """Mean device ms of one launch of each kernel that ``fn`` launches,
+    by kernel name (``torch.profiler``), after a warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        total = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.count and total:
+            name = re.sub(r"^void |\(anonymous namespace\)::", "", e.key)
+            out[name.split("(")[0][:80]] = total / e.count / 1e3
+    return out
 
 
 def serve_step_ms(cfg, params, n_requests: int, Request, ServeEngine) -> list:
@@ -167,6 +197,32 @@ def main() -> int:
         out["wkv6_decode_in_place_ms"] = event_ms(
             lambda: ops.wkv6(rs, ks, vs, ws, u, S, state_out=S))
     del v1, g1, g18, v18
+
+    # the backward kernels at the training shapes
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_fwd_cuda,
+    )
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
+
+    bf16 = lambda *s: torch.as_tensor(rng.normal(size=s), device=dev).to(torch.bfloat16)
+    q = bf16(1, 4096, 40, 128).transpose(1, 2)
+    k, v = bf16(1, 8, 4096, 128), bf16(1, 8, 4096, 128)
+    o, lse = flash_attention_fwd_cuda(q, k, v, True)
+    do = bf16(1, 40, 4096, 128)
+    bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+    out["flash_attention_bwd_train_ms"] = event_ms(bwd, 10)
+    out["flash_attention_bwd_train_kernels_ms"] = kernel_device_ms(bwd)
+    del q, k, v, o, lse, do
+    heads = lambda x: x.transpose(1, 2)
+    r, k, v, dy = (heads(bf16(1, 4096, 64, 64) * 0.5) for _ in range(4))
+    w = heads(torch.as_tensor(rng.uniform(0.7, 0.999, (1, 4096, 64, 64)), device=dev)
+              .to(torch.bfloat16))
+    u = bf16(64, 64) * 0.1
+    bwd = lambda: wkv6_bwd_cuda(r, k, v, w, u, None, dy)
+    out["wkv6_bwd_train_ms"] = event_ms(bwd, 10)
+    out["wkv6_bwd_train_kernels_ms"] = kernel_device_ms(bwd)
+    del r, k, v, w, u, dy
+    torch.cuda.empty_cache()
 
     # RWKV6-7B decode
     cfg = get("rwkv6-7b")

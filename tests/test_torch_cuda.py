@@ -439,7 +439,7 @@ def _rel_errs(got, want):
 def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, causal, B, Hq, Hkv, Sq, Sk,
                                                   D):
     from repro_torch.kernels.flash_attention import (
-        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        BWD_KERNELS, attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_fwd_cuda,
     )
 
@@ -451,7 +451,10 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, causal, B,
     o, lse = flash_attention_fwd_cuda(q, k, v, causal)
     torch.testing.assert_close(lse, attention_lse_plain(q, k, causal), rtol=1e-4, atol=1e-4)
     do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).to(dtype)
+    ops.reset_launches()
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    # bf16 on the tensor cores, float32 on the CUDA cores
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {BWD_KERNELS[dtype]: 1}
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     assert max(_rel_errs(got, want)) <= BWD_TOL[dtype]
     again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
@@ -481,6 +484,63 @@ def test_wkv6_bwd_kernel_matches_plain(cuda_device, dtype, T, with_state):
     want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dstate)
     for g, wnt in zip(got, want):
         assert max(_rel_errs([g], [wnt])) <= BWD_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D,causal", [
+    (1, 8, 8, 129, 129, 112, True), (2, 5, 1, 200, 200, 48, True),
+    (1, 40, 8, 257, 513, 128, True), (1, 8, 1, 200, 77, 112, False),
+])
+def test_flash_attention_bwd_sm90_on_several_tiles_and_heads(cuda_device, B, Hq, Hkv, Sq, Sk,
+                                                           D, causal):
+    """The tensor-core backward over several 64- and 128-row tiles, the
+    causal offset across them, groups 1, 5 and 8, and the copy engine's
+    zero fill (D 48, 112), against the plain backward; bit for bit again."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_fwd_cuda,
+    )
+
+    rng = np.random.default_rng(Sq * D + Hq)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).bfloat16()
+    q = q.transpose(1, 2)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).bfloat16()
+    ops.reset_launches()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {"flash_attention_bwd_sm90": 2}
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert max(_rel_errs(got, want)) <= BWD_TOL[torch.bfloat16]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,D,with_state", [(17, 64, True), (300, 64, False), (129, 128, True),
+                                            (257, 16, False), (33, 32, True)])
+def test_wkv6_bwd_chunk_parallel_with_tiny_decays(cuda_device, dtype, T, D, with_state):
+    """The chunk-parallel backward with w drawn down to 1e-12 (where a
+    decay taken as a quotient would overflow), T not a multiple of the
+    chunk and past several stages of the boundary kernel, strided inputs;
+    against the reverse recurrence, and bit for bit again."""
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+
+    rng = np.random.default_rng(T + D)
+    B, H = 1, 3
+    shape = (B, T, H, D)
+    r, k, v, dy = (torch.as_tensor(rng.normal(size=shape) * 0.5, device=cuda_device)
+                   .to(dtype).transpose(1, 2) for _ in range(4))
+    w = np.exp(rng.uniform(np.log(1e-12), np.log(0.999), size=shape))
+    w = torch.as_tensor(w, device=cuda_device).to(dtype).transpose(1, 2)
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).to(dtype)
+    s0, dstate = ((torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+                   for _ in range(2)) if with_state else (None, None))
+    got = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dstate)
+    again = wkv6_bwd_cuda(r, k, v, w, u, s0, dy, dstate)
+    want = wkv6_bwd_plain(r, k, v, w, u, s0, dy, dstate)
+    for g, wnt in zip(got, want):
+        assert max(_rel_errs([g], [wnt])) <= BWD_TOL[dtype]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 def test_kernel_wrappers_refuse_inputs_that_want_a_gradient(cuda_device):

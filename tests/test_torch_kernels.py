@@ -408,7 +408,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
         hash32x2_cuda(torch.zeros((3, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
         "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2",
-        "flash_attention_bwd", "wkv6_bwd")}
+        "flash_attention_bwd", "flash_attention_bwd_sm90", "wkv6_bwd")}
     assert MODE_LAUNCHES == {"find": 0, "exists_before": 0}
 
 
@@ -466,4 +466,48 @@ def test_plain_versions_launch_nothing_on_cpu():
     ops.hash32x2(torch.zeros((5, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
         "segment_sum", "substr_find", "wkv6", "flash_attention", "flash_attention_sm90", "hash32x2",
-        "flash_attention_bwd", "wkv6_bwd")}
+        "flash_attention_bwd", "flash_attention_bwd_sm90", "wkv6_bwd")}
+
+
+def test_backward_routes_bf16_to_the_tensor_core_kernel_and_f32_to_the_cuda_cores():
+    """The backward's plan, as the card would launch it: bf16 goes to
+    ``flash_attention_bwd_sm90`` with its padded lse/Delta buffer and
+    layouts the copy engine can describe (others copied), float32 to
+    ``flash_attention_bwd`` with its Delta buffer; no other dtype."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    B, Hq, Hkv, Sq, Sk, D = 2, 6, 2, 37, 50, 64
+    for dtype, name, rows in ((torch.bfloat16, "flash_attention_bwd_sm90", (B * Hq * 2 * 192,)),
+                              (torch.float32, "flash_attention_bwd", (B, Hq, Sq))):
+        q = torch.zeros((B, Sq, Hq, D), dtype=dtype).transpose(1, 2)  # the model's strides
+        k, v = torch.zeros((B, Hkv, Sk, D), dtype=dtype), torch.zeros((B, Hkv, Sk, D), dtype=dtype)
+        do = torch.zeros((B, Hq, Sq, D), dtype=dtype)
+        plan = tfa.bwd_launch_plan(q, k, v, do)
+        assert (plan.name, tuple(plan.rows)) == (name, rows)
+        assert plan.q is q and plan.k is k and plan.do is do  # taken as they are
+        assert ops.LAUNCHES[name] == 0
+    assert tfa.bwd_ld_elements(1, 40, 4096) == 40 * 2 * 4224  # 22 tiles of 192 queries
+    assert tfa.bwd_ld_elements(1, 1, 1) == 2 * 192
+    # a bf16 sequence stride of 36 elements (72 bytes) is no multiple of 16 bytes
+    odd = torch.zeros((1, 4, 3, 36), dtype=torch.bfloat16)[..., :32]
+    plan = tfa.bwd_launch_plan(odd, odd[:, :2], odd[:, :2], odd)
+    assert plan.q is not odd and plan.q.is_contiguous() and torch.equal(plan.q, odd)
+    with pytest.raises(KeyError):
+        tfa.bwd_launch_plan(*(odd.half(),) * 4)
+
+
+@pytest.mark.parametrize("B,H,T,D", [(1, 64, 4096, 64), (2, 3, 17, 16), (1, 2, 1, 128)])
+def test_wkv6_bwd_scratch_is_the_states_at_chunk_boundaries(B, H, T, D):
+    """The chunk-parallel backward's scratch: the forward state before each
+    chunk of BWD_CHUNK steps, the state's gradient after each group of
+    BWD_GROUP chunks, and each chunk's du (268 MB and 67 MB of states at
+    RWKV6-7B's training shape)."""
+    chunks = -(-T // twkv6.BWD_CHUNK)
+    groups = -(-chunks // twkv6.BWD_GROUP)
+    assert twkv6.bwd_scratch_sizes(B, H, T, D) == (
+        B * H * chunks * D * D, B * H * groups * D * D, B * H * chunks * D)
+    if (B, H, T, D) == (1, 64, 4096, 64):
+        assert [n * 4 for n in twkv6.bwd_scratch_sizes(B, H, T, D)[:2]] == [
+            268_435_456, 67_108_864]
+    if T == 1:
+        assert twkv6.bwd_scratch_sizes(B, H, T, D)[1] == B * H * D * D

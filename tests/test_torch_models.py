@@ -520,6 +520,104 @@ def test_wkv6_bwd_plain_matches_autograd_of_the_plain_forward():
             _close_grads([g], [w.numpy()], name)
 
 
+def _wkv6_bwd_three_phase(r, k, v, w, u, s0, dy, ds, chunk, cols, group):
+    """A plain float32 twin of ``csrc/wkv6_bwd.cu``'s arithmetic: (a) the
+    state before each chunk, forwards, and (b) its gradient after each
+    group of chunks, backwards, both column slice by column slice (columns
+    evolve apart), then (c) each group on its own, its chunks from the
+    last: P_t forwards from the chunk's state (kept), G_t backwards, carried
+    from chunk to chunk, the gradients.  Steps past T are padded with w 1
+    and zeros, which leave P and G as they are.  Nothing divides."""
+    B, H, T, D = r.shape
+    nc = -(-T // chunk)
+    ng = -(-nc // group)
+    pad = ng * group * chunk - T
+
+    def padded(x, value=0.0):
+        return torch.cat([x, torch.full((B, H, pad, D), value)], 2) if pad else x
+
+    r, k, v, dy = (padded(x) for x in (r, k, v, dy))
+    w = padded(w, 1.0)
+    zero = torch.zeros((B, H, D, D))
+    pst, gst = torch.empty((B, H, nc, D, D)), torch.empty((B, H, ng, D, D))
+    ds0 = torch.empty((B, H, D, D))
+    for j0 in range(0, D, cols):  # (a), (b): a block's columns
+        sl = slice(j0, min(D, j0 + cols))
+        S = (zero if s0 is None else s0)[..., sl].clone()
+        for c in range(nc):
+            pst[:, :, c, :, sl] = S
+            for t in range(c * chunk, (c + 1) * chunk if c < nc - 1 else 0):
+                S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, sl]
+        G = (zero if ds is None else ds)[..., sl].clone()
+        for g in reversed(range(ng)):
+            gst[:, :, g, :, sl] = G
+            for t in reversed(range(g * group * chunk, (g + 1) * group * chunk)):
+                G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dy[:, :, t, None, sl]
+        ds0[..., sl] = G
+    dr, dk, dv, dw = (torch.empty((B, H, ng * group * chunk, D)) for _ in range(4))
+    du = torch.zeros((B, H, D))
+    vdy = (v * dy).sum(-1)
+    ruk = (r * u[:, None] * k).sum(-1)
+    chunks = [(g, c) for g in range(ng)
+              for c in reversed(range(g * group, min(nc, (g + 1) * group)))]
+    for g, c in chunks:  # (c): every group apart, its chunks from the last
+        steps = range(c * chunk, (c + 1) * chunk)
+        if c == min(nc, (g + 1) * group) - 1:
+            G = gst[:, :, g]
+        P, hist = pst[:, :, c], {}
+        for t in steps:
+            hist[t] = P
+            dr[:, :, t] = torch.einsum("bhij,bhj->bhi", P, dy[:, :, t]) + u * k[:, :, t] * vdy[
+                :, :, t, None]
+            P = w[:, :, t, :, None] * P + k[:, :, t, :, None] * v[:, :, t, None, :]
+        for t in reversed(steps):
+            dk[:, :, t] = r[:, :, t] * u * vdy[:, :, t, None] + torch.einsum(
+                "bhij,bhj->bhi", G, v[:, :, t])
+            dw[:, :, t] = (G * hist[t]).sum(-1)
+            dv[:, :, t] = ruk[:, :, t, None] * dy[:, :, t] + torch.einsum(
+                "bhij,bhi->bhj", G, k[:, :, t])
+            G = w[:, :, t, :, None] * G + r[:, :, t, :, None] * dy[:, :, t, None, :]
+        du += (r[:, :, steps] * k[:, :, steps] * vdy[:, :, steps, None]).sum(2)
+    return dr[:, :, :T], dk[:, :, :T], dv[:, :, :T], dw[:, :, :T], du.sum(0), ds0
+
+
+@pytest.mark.parametrize("T,chunk,cols,group,with_state", [
+    (37, 16, 6, 4, True),  # T not a multiple of the chunk, ragged column slices
+    (37, 16, 16, 4, False),  # the model's call: no state, no final-state gradient
+    (19, 5, 7, 2, True),  # many chunks and groups, the last ones short
+    (1, 16, 16, 4, True),  # one step
+])
+def test_wkv6_bwd_three_phase_twin_matches_the_reverse_recurrence_and_jax_vjp(
+        T, chunk, cols, group, with_state):
+    """The backward kernel's three phases, rehearsed in float32 on the CPU
+    with w drawn down to 1e-12 (where a decay taken as a quotient of
+    cumulative products would overflow), against ``wkv6_bwd_plain`` and
+    ``jax.vjp`` of the reference recurrence; tolerance BWD_TOL of each
+    gradient's largest value (sums in another order)."""
+    B, H, D = 2, 3, 16
+    args, dy, ds = _wkv6_bwd_case(T + chunk, B=B, H=H, T=T, D=D)
+    rng = np.random.default_rng(T)
+    w = np.exp(rng.uniform(np.log(1e-12), np.log(0.999), size=(B, H, T, D))).astype(np.float32)
+    args = (*args[:3], w, *args[4:])
+    s0 = torch.from_numpy(args[5]) if with_state else None
+    dst = torch.from_numpy(ds) if with_state else None
+    t_args = [torch.from_numpy(a) for a in args[:5]]
+    got = _wkv6_bwd_three_phase(*t_args, s0, torch.from_numpy(dy), dst, chunk, cols, group)
+    plain = tref.wkv6_bwd_plain(*t_args, s0, torch.from_numpy(dy), dst)
+    j_args = [jnp.asarray(a) for a in args[:5]]
+    if with_state:
+        _, vjp = jax.vjp(jref.wkv6_reference, *j_args, jnp.asarray(args[5]))
+        want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    else:
+        _, vjp = jax.vjp(lambda *a: jref.wkv6_reference(*a)[0], *j_args)
+        want = (*vjp(jnp.asarray(dy)), np.asarray(plain[5]))
+    assert float(w.min()) < 1e-10
+    for name, g, p, wnt in zip(("dr", "dk", "dv", "dw", "du", "ds0"), got, plain, want):
+        assert torch.isfinite(g).all(), name
+        _close_grads([g], [p.numpy()], f"{name} vs the reverse recurrence")
+        _close_grads([g], [wnt], f"{name} vs jax.vjp")
+
+
 def test_cpu_gradients_take_the_plain_versions_and_launch_nothing():
     """On the CPU, autograd differentiates the plain versions through
     ``ops``; no kernel, forward or backward, is launched."""
