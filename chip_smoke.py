@@ -14,17 +14,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    its fused exists_before at row widths 1 to 128, base pointers 0 to 15
    bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
    on strided inputs with its state written in place; the backward
-   kernels of K4 (bf16 on the tensor cores, float32 on the CUDA cores)
+   kernels of K4 (bf16, and float32 in split TF32, on the tensor cores)
    and K5, from the forward kernels' log-sum-exp, at head dims 16 to 128,
-   groups 1, 5 and 8, ragged, causal-offset and non-causal shapes, T 1 to
-   300 with and without a state and w down to 1e-12, each twice to show
+   groups 1, 5 and 8, ragged, causal-offset and non-causal shapes, K4's
+   float32 pair also over 32768 keys, T 1 to 300 with and without a state and w down to 1e-12, each twice to show
    it repeats bit for bit, and the autograd Functions against the CPU's
    autograd) and at the shapes
    the main paths give it (2b: TPC-H q1 and q18 group sums, the q13
    ``o_comment`` dictionary's find and exists_before, q9's ``p_name``
    and q16's ``s_comment`` dictionaries, the tuple hash of lineitem's
    (l_orderkey, l_linenumber), Qwen3-14B's prefill attention on the bf16
-   tensor-core kernel and, on float32 copies, the CUDA-core kernel, the
+   tensor-core kernel and, on float32 copies, the split-TF32 kernel, the
    bf16 attention of the later families' prefills (Kimi-K2: GQA group 8
    at head dim 112; Zamba2's shared block: group 1 at 80; the vision
    model's cross-attention: non-causal, 4096 queries over 1600 keys;
@@ -63,7 +63,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    memory, and the device's busy share of a profiled prefill and decode
    pass;
 7. the card against the CPU on the LM path: every family at a reduced
-   float32 config (attention through the f32 CUDA-core kernel, once per
+   float32 config (attention through the f32 split-TF32 kernel, once per
    attention layer and nothing else; the vision model's cross-attention
    gates opened to 0.5) with the same weights on both devices, prefill
    logits within 1e-4 and served tokens equal (MusicGen: four
@@ -101,11 +101,17 @@ ROOT = Path(__file__).resolve().parent
 # bound each kernel is held to: device-memory bandwidth; the
 # non-tensor-core float32 rate, for the segment sum, the substring search,
 # the tuple hash and the WKV recurrence (the table has no integer, float64
-# or int64 entry; those kernels are bounded by bytes either way); and
-# the bf16 tensor-core rate, for attention on bf16 inputs.
+# or int64 entry; those kernels are bounded by bytes either way); the
+# bf16 tensor-core rate, for attention on bf16 inputs; and the TF32
+# tensor-core rate, for attention on float32 inputs, which takes three
+# TF32 products for each float32-accurate one (split TF32: a_lo b_hi +
+# a_hi b_lo + a_hi b_hi), an effective 165 TFLOP/s (the CUDA cores' 67
+# TFLOP/s bound is reported beside it).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_TF32_OPS_PER_S = 495e12
+TF32_PRODUCTS = 3
 
 # Tolerances of kernel vs plain version on one call.  Float atomics add
 # in an order that changes from run to run: float64 agrees to rtol 1e-12,
@@ -172,7 +178,7 @@ TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "grad_ssd": 5e-4}
 # Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
 LM_CHECK_TOL = 1e-4
 #: the kernels of training's backward (no TPU counterpart)
-BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd", "wkv6_bwd")
+BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90", "wkv6_bwd")
 
 
 def log(*parts) -> None:
@@ -630,20 +636,18 @@ def allclose_err(torch, got, want, tol: float):
     return max_abs_err(torch, g, w), bool(((g - w).abs() <= tol + tol * w.abs()).all())
 
 
-def check_attention(torch, q, k, v, causal: bool, label: str, cuda_cores: bool = False) -> float:
-    """``flash_attention_cuda`` (bf16 on the tensor-core kernel, f32 on the
-    CUDA-core one), or with ``cuda_cores`` the CUDA-core kernel in either
-    dtype, against the plain version; the launch counts must show which
-    kernel ran."""
+def check_attention(torch, q, k, v, causal: bool, label: str) -> float:
+    """``flash_attention_cuda`` (the tensor-core kernel of q's dtype: bf16,
+    or float32 in split TF32) against the plain version; the launch counts
+    must show which kernel ran."""
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda, flash_attention_cuda_cores, flash_attention_plain,
+        FWD_KERNELS, flash_attention_cuda, flash_attention_plain,
     )
 
-    bf16_route = q.dtype == torch.bfloat16 and not cuda_cores
-    name = "flash_attention_sm90" if bf16_route else "flash_attention"
+    name = FWD_KERNELS[q.dtype]
     before = dict(build.LAUNCHES)
-    got = (flash_attention_cuda_cores if cuda_cores else flash_attention_cuda)(q, k, v, causal)
+    got = flash_attention_cuda(q, k, v, causal)
     ran = [n for n in build.LAUNCHES if build.LAUNCHES[n] != before[n]]
     want = flash_attention_plain(q, k, v, causal)
     torch.cuda.synchronize()
@@ -731,8 +735,8 @@ def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D) -> float:
 def lm_edge_phase(torch, dev) -> None:
     from repro_torch.kernels.wkv6 import wkv6_cuda
 
-    log("phase 2a: edge shapes of flash_attention (K4: bf16 on the tensor-core kernel, "
-        "f32 on the CUDA-core one) and wkv6 (K5)")
+    log("phase 2a: edge shapes of flash_attention (K4: bf16, and f32 in split TF32, on the "
+        "tensor cores) and wkv6 (K5)")
     rng = np.random.default_rng(11)
     for dtype in (torch.float32, torch.bfloat16):
         # (B, Hq, Hkv, Sq, Sk, D): ragged lengths around the 64- and 128-row
@@ -790,6 +794,8 @@ def lm_edge_phase(torch, dev) -> None:
 # (abs and rel: float32 sums in another order, ex2.approx on the tensor
 # cores).  The card's autograd against the CPU's: float32, FN_TOL.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: (B, Hq, Hkv, Sq, Sk, D) of the float32 kernels' long-key check
+LONG_KEYS = (1, 5, 1, 192, 32768, 128)
 LSE_TOL = 1e-4
 FN_TOL = 1e-4
 
@@ -801,9 +807,9 @@ def rel_err(torch, got, want) -> float:
 
 
 def check_attention_bwd(torch, rng, q, k, v, causal: bool, label: str) -> float:
-    """K4's backward kernel of q's dtype (bf16: the tensor-core
-    ``flash_attention_bwd_sm90``; float32: the CUDA-core
-    ``flash_attention_bwd``) on the forward kernel's o and log-sum-exp and
+    """K4's backward kernel of q's dtype (bf16: ``flash_attention_bwd_sm90``;
+    float32: ``flash_attention_bwd_f32_sm90``, split TF32; both on the
+    tensor cores) on the forward kernel's o and log-sum-exp and
     a random dO, against the plain backward on the same inputs; twice, to
     show the result repeats bit for bit (no atomics), and only that
     kernel launched."""
@@ -902,7 +908,7 @@ def check_autograd_functions(torch, rng, dev) -> None:
 
     q, k, v = both(2, 10, 77, 64), both(2, 2, 77, 64), both(2, 2, 77, 64)
     compare("ops.flash_attention", lambda *t: ops.flash_attention(*t, causal=True), [q, k, v],
-            ("flash_attention", "flash_attention_bwd"))
+            ("flash_attention_f32_sm90", "flash_attention_bwd_f32_sm90"))
     r, kk, vv = (both(2, 3, 21, 32) for _ in range(3))
     w, u, s0 = both(2, 3, 21, 32, low=0.7), both(3, 32), both(2, 3, 32, 32)
     compare("ops.wkv6", ops.wkv6, [r, kk, vv, w, u, s0], ("wkv6", "wkv6_bwd"))
@@ -922,8 +928,8 @@ def check_autograd_functions(torch, rng, dev) -> None:
 
 def bwd_edge_phase(torch, dev) -> None:
     log("phase 2a: edge shapes of the backward kernels (K4: flash_attention_bwd_sm90 for bf16, "
-        "flash_attention_bwd for f32, on the forward kernels' log-sum-exp; K5: wkv6_bwd), and "
-        "the autograd Functions")
+        "flash_attention_bwd_f32_sm90 for f32, on the forward kernels' log-sum-exp; K5: "
+        "wkv6_bwd), and the autograd Functions")
     rng = np.random.default_rng(13)
     for dtype in (torch.float32, torch.bfloat16):
         # (B, Hq, Hkv, Sq, Sk, D): head dims 16 to 128, groups 1, 5 and 8,
@@ -951,6 +957,17 @@ def bwd_edge_phase(torch, dev) -> None:
                                    strided=bool((i + with_state) % 2),
                                    w_low=1e-12 if i % 3 == 1 else None)
                 check_wkv6_bwd(torch, rng, args, "edge", with_dstate=with_state)
+    # float32 over long key runs: O and dQ sum 32768 keys, 12288 products a
+    # row, which without promotion the tensor cores' float32 accumulation
+    # would take alone
+    B, Hq, Hkv, Sq, Sk, D = LONG_KEYS
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=dev).float().transpose(1, 2)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=dev).float()
+            for _ in range(2))
+    for causal in (True, False):
+        check_attention(torch, q, k, v, causal, "long keys")
+        check_attention_bwd(torch, rng, q, k, v, causal, "long keys")
+    del q, k, v
     check_autograd_functions(torch, rng, dev)
 
 
@@ -1005,9 +1022,7 @@ def lm_main_shape_phase(torch, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_cuda_cores, flash_attention_plain,
-    )
+    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 
     log("phase 2b: LM main-path shapes")
@@ -1020,25 +1035,30 @@ def lm_main_shape_phase(torch, dev) -> dict:
     rows = [attention_row(torch, q, k, v, True, label)]
     nops = rows[0]["ops"]
     qd = q.contiguous()
-    # the CUDA-core kernel, whose model path is float32 (phase 7): float32
-    # copies of the same inputs, its bound at the float32 rate, and
-    # scaled_dot_product_attention on the same float32 inputs
+    # the float32 kernel (split TF32 on the tensor cores), whose model path
+    # is float32 (phases 7 and 8a): float32 copies of the same inputs, its
+    # bound at three TF32 products for each (and, beside it, at the CUDA
+    # cores' float32 rate) and scaled_dot_product_attention on the same
+    # float32 inputs
     q, qd, k, v = (t.float() for t in (q, qd, k, v))  # q keeps the model's strides
     label = label.replace("bf16", "float32")
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    b_ms, b_by = bound_ms(nbytes, nops, PEAK_OPS_PER_S)
+    b_ms, b_by = bound_ms(nbytes, TF32_PRODUCTS * nops, PEAK_TF32_OPS_PER_S)
+    cc_ms, _ = bound_ms(nbytes, nops, PEAK_OPS_PER_S)
     p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), 2)
     l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qd, k, v, is_causal=True, enable_gqa=True), LM_REPS)
-    err = check_attention(torch, q, k, v, True, label, cuda_cores=True)
-    k_ms = cuda_ms(torch, lambda: flash_attention_cuda_cores(q, k, v, True), LM_REPS)
-    d_ms = device_ms(torch, lambda: flash_attention_cuda_cores(q, k, v, True),
-                     "flash_attention_kernel", LM_REPS)
-    row = dict(label=label, kernel="flash_attention", max_abs_err=err, ms=k_ms,
+    err = check_attention(torch, q, k, v, True, label)
+    k_ms = cuda_ms(torch, lambda: flash_attention_cuda(q, k, v, True), LM_REPS * 2)
+    # fa_f32_sm90_split_kernel and fa_f32_sm90_kernel, each once a call
+    d_ms = device_ms(torch, lambda: flash_attention_cuda(q, k, v, True), "fa_f32_sm90_",
+                     LM_REPS, per_call=True)
+    row = dict(label=label, kernel="flash_attention_f32_sm90", max_abs_err=err, ms=k_ms,
                device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_cuda_cores_ms=cc_ms,
                bytes=nbytes, ops=nops)
     log("   ", json.dumps(row))
-    out["flash_attention"] = [row]
+    out["flash_attention_f32_sm90"] = [row]
     del q, qd, k, v
     # the later families' prefill attention: each layer of kimi-k2 and of
     # musicgen, zamba2's shared block, the vision model's cross-attention
@@ -1093,9 +1113,9 @@ def lm_main_shape_phase(torch, dev) -> dict:
 def bwd_main_shape_phase(torch, dev) -> dict:
     """The backward kernels at the training shapes of phase 8(b), with the
     plain backward on the same inputs and the library's backward: K4's at
-    Qwen3-14B's (bf16 on the tensor-core kernel, then float32 copies on
-    the CUDA-core one), K5's at RWKV6-7B's.  Device times sum every kernel
-    of one call (each kernel's mean launch, by name prefix)."""
+    Qwen3-14B's (bf16, then float32 copies in split TF32, both on the
+    tensor cores), K5's at RWKV6-7B's.  Device times sum every kernel of
+    one call (each kernel's mean launch, by name prefix)."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get
@@ -1112,9 +1132,11 @@ def bwd_main_shape_phase(torch, dev) -> dict:
     q, k, v = attention_inputs(torch, rng, dev, B, Hq, Hkv, S, S, D)
     out = {}
     # the kernels of one call: fa_bwd_sm90_{delta,dkdv,dq}_kernel (bf16),
-    # fa_bwd_{delta,dkdv,dq}_kernel (float32)
+    # fa_bwd_f32_sm90_{split,delta,dkdv,dq}_kernel (float32, bounded at
+    # three TF32 products a product)
     for dtype, peak, prefix in ((torch.bfloat16, PEAK_BF16_OPS_PER_S, "fa_bwd_sm90_"),
-                                (torch.float32, PEAK_OPS_PER_S, "fa_bwd_")):
+                                (torch.float32, PEAK_TF32_OPS_PER_S / TF32_PRODUCTS,
+                                 "fa_bwd_f32_sm90_")):
         q, k, v = (t.to(dtype) for t in (q, k, v))  # q keeps the model's strides
         o, lse = flash_attention_fwd_cuda(q, k, v, True)
         do = torch.as_tensor(rng.normal(size=tuple(o.shape)), device=dev).to(dtype)
@@ -1127,7 +1149,7 @@ def bwd_main_shape_phase(torch, dev) -> dict:
         nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
         b_ms, b_by = bound_ms(nbytes, nops, peak)
         bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
-        k_ms = cuda_ms(torch, bwd, LM_REPS if dtype == torch.bfloat16 else 3)
+        k_ms = cuda_ms(torch, bwd, LM_REPS)
         d_ms = device_ms(torch, bwd, prefix, 3, per_call=True)
         p_ms = cuda_ms(torch, lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, True), 2)
         # the library: scaled_dot_product_attention's backward alone, on the same inputs
@@ -1139,6 +1161,8 @@ def bwd_main_shape_phase(torch, dev) -> dict:
         row = dict(label=label, kernel=BWD_KERNELS[dtype], max_abs_err=err, ms=k_ms,
                    device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
                    bytes=nbytes, ops=nops)
+        if dtype == torch.float32:
+            row["bound_cuda_cores_ms"] = bound_ms(nbytes, nops, PEAK_OPS_PER_S)[0]
         log("   ", json.dumps(row))
         out[BWD_KERNELS[dtype]] = [row]
         del o, lse, do
@@ -1434,7 +1458,7 @@ def lm_check_phase(torch, ops, dev) -> dict:
     CPU (the vision model's cross-attention gates opened to CROSS_GATE in
     both): prefill logits within LM_CHECK_TOL, served tokens equal (a
     model without token inputs: four decode steps' logits).  Each card
-    prefill must launch its model's f32 kernel once per attention layer
+    prefill must launch its model's f32 kernel (split TF32) once per attention layer
     (K5 once per layer) and nothing else; returns those launch counts by
     arch."""
     import copy
@@ -1451,7 +1475,7 @@ def lm_check_phase(torch, ops, dev) -> dict:
                        ("llama-3.2-vision-90b", {}), ("musicgen-medium", {})):
         cfg = reduced(get(arch), **over)
         kernel, want_launches = (("wkv6", cfg.n_layers) if cfg.family == "rwkv6"
-                                 else ("flash_attention", attention_layers(cfg)))
+                                 else ("flash_attention_f32_sm90", attention_layers(cfg)))
         cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
         for block in (cpu["cross_blocks"] if "cross_blocks" in cpu else []):
             block["attn"]["gate"].fill_(CROSS_GATE)
@@ -1506,12 +1530,12 @@ def train_launches(cfg) -> dict:
     ``remat="nothing"``: a checkpointed block runs its forward twice (once
     more in the backward), the hybrid's shared attention block, which is
     not checkpointed, once; one backward launch per layer (K4's of the
-    compute dtype: bf16 on the tensor cores, float32 on the CUDA cores)."""
+    compute dtype, both on the tensor cores: bf16, or float32 in split TF32)."""
     if cfg.family == "rwkv6":
         return {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
     bf16 = cfg.compute_dtype == "bfloat16"
-    fwd = "flash_attention_sm90" if bf16 else "flash_attention"
-    bwd = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd"
+    fwd = "flash_attention_sm90" if bf16 else "flash_attention_f32_sm90"
+    bwd = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd_f32_sm90"
     n = attention_layers(cfg)
     return {fwd: n if cfg.family == "mamba_hybrid" else 2 * n, bwd: n}
 
@@ -1953,14 +1977,15 @@ def main() -> int:
     # of ops.hash32x2 (no path of the engine calls it)
     launches["flash_attention_sm90"] = (
         lm_runs["qwen3-14b"]["prefill"]["launches"]["flash_attention_sm90"])
-    launches["flash_attention"] = f32_runs["qwen3-14b"]["flash_attention"]
+    launches["flash_attention_f32_sm90"] = f32_runs["qwen3-14b"]["flash_attention_f32_sm90"]
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
     launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
     # the backward kernels: bf16 K4 and K5 in one train step of phase 8b,
     # float32 K4 in one reduced float32 Qwen3-14B microbatch of phase 8a
     launches["flash_attention_bwd_sm90"] = (
         train_runs["qwen3-14b"]["launches"]["flash_attention_bwd_sm90"])
-    launches["flash_attention_bwd"] = train_f32["qwen3-14b"]["flash_attention_bwd"]
+    launches["flash_attention_bwd_f32_sm90"] = (
+        train_f32["qwen3-14b"]["flash_attention_bwd_f32_sm90"])
     launches["wkv6_bwd"] = train_runs["rwkv6-7b"]["launches"]["wkv6_bwd"]
     shapes.update(lm_shapes)
     for arch, run in lm_runs.items():
@@ -1978,16 +2003,17 @@ def main() -> int:
                      "src/repro/kernels/hash32x2.py:38"),
         "flash_attention_sm90": ("src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
                                  "src/repro/kernels/flash_attention.py:65"),
-        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:65"),
+        "flash_attention_f32_sm90": ("src/repro_torch/kernels/csrc/flash_attention_f32_sm90.cu",
+                                     "src/repro/kernels/flash_attention.py:65"),
         "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
         # the backward kernels have no TPU counterpart (the JAX package
         # differentiates through XLA): "replaces" names the TPU kernel
         # whose function they differentiate
         "flash_attention_bwd_sm90": ("src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
                                      "src/repro/kernels/flash_attention.py:65"),
-        "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-                                "src/repro/kernels/flash_attention.py:65"),
+        "flash_attention_bwd_f32_sm90": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_f32_sm90.cu",
+            "src/repro/kernels/flash_attention.py:65"),
         "wkv6_bwd": ("src/repro_torch/kernels/csrc/wkv6_bwd.cu", "src/repro/kernels/wkv6.py:51"),
     }
     kernels = []

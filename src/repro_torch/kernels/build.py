@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded with ``ctypes``.
 Libraries land in ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of their source, so an edited source builds anew and an
-unchanged one is reused.  Building happens at first use (or through
-``build_all``), never at import: machines without ``nvcc`` import this
-module freely.
+named by a hash of their source and of the headers in ``csrc/``, so an
+edited source or header builds anew and an unchanged one is reused.
+Building happens at first use (or through ``build_all``), never at
+import: machines without ``nvcc`` import this module freely.
 
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds
 one right where it launches its kernel and nowhere else, so a count
@@ -41,21 +41,21 @@ SIGNATURES = {
     "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P]),
     "substr_find": ("repro_substr_find", [_I, _P, _P, _P, _P, _I, _P, _I, _L, _I, _P, _P]),
     "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
-    "flash_attention": (
-        "repro_flash_attention",
-        [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
-    ),
     "flash_attention_sm90": (
         "repro_flash_attention_sm90",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],
     ),
+    "flash_attention_f32_sm90": (
+        "repro_flash_attention_f32_sm90",
+        [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+    ),
     "hash32x2": ("repro_hash32x2", [_P, _L, _I, _P, _P]),
     # the backward kernels of K4 and K5 (training; no TPU counterpart)
-    "flash_attention_bwd": (
-        "repro_flash_attention_bwd", [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
-    ),
     "flash_attention_bwd_sm90": (
         "repro_flash_attention_bwd_sm90", [_P] * 10 + [ctypes.POINTER(_L), _F, _I, _P],
+    ),
+    "flash_attention_bwd_f32_sm90": (
+        "repro_flash_attention_bwd_f32_sm90", [_P] * 11 + [ctypes.POINTER(_L), _F, _I, _P],
     ),
     "wkv6_bwd": ("repro_wkv6_bwd", [_I] + [_P] * 17 + [ctypes.POINTER(_L), _P]),
 }
@@ -97,6 +97,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the headers a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

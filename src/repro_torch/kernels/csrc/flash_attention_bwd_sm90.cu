@@ -5,12 +5,11 @@
 // The TPU kernel `flash_attention_pallas` (src/repro/kernels/flash_attention.py)
 // has no backward: the JAX package differentiates through XLA attention.
 // The port's forward runs the hand-written K4 kernels, so training on the
-// card needs a backward.  This source is the bf16 one; float32 stays on
-// csrc/flash_attention_bwd.cu, on the CUDA cores, the only kernel here
-// that meets the float32 tolerance (the tensor cores' TF32 would not),
-// just as the forward's two sources are split.  It computes what
-// autograd of `flash_attention_plain` computes, by the same formulas as
-// flash_attention_bwd.cu:
+// card needs a backward.  This source is the bf16 one; float32 runs
+// csrc/flash_attention_bwd_f32_sm90.cu, also on the tensor cores, in
+// split TF32 (one TF32 product would miss the float32 tolerance, three do
+// not), just as the forward's two sources are split.  It computes what
+// autograd of `flash_attention_plain` computes:
 //
 //   P  = exp(Q K^T * scale - lse)     (recomputed, the forward's mask)
 //   dV = P^T dO                        dP = dO V^T

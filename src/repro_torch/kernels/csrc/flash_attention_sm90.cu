@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel `flash_attention_pallas`
 // (src/repro/kernels/flash_attention.py, body `_kernel`) for bf16 inputs;
-// float32 inputs stay on csrc/flash_attention.cu, on the CUDA cores, the
-// only kernel here that meets the float32 tolerance (TF32 would not).
+// float32 inputs run csrc/flash_attention_f32_sm90.cu, also on the tensor
+// cores, in split TF32: one TF32 product would miss the float32
+// tolerance, three (hi and lo parts of each operand) do not.
 // The TPU kernel walks a sequential kv grid dimension per (batch, head,
 // q block) and carries the running max, denominator and accumulator in
 // VMEM scratch.  Hopper blocks run in no order, so one block owns one
@@ -63,7 +64,7 @@
 //   * The end: O divided by the denominator, written in bf16; where the
 //     caller passes an `lse` buffer (training), also each row's float32
 //     log-sum-exp of the scaled logits, m / sqrt(D) + log l, which the
-//     backward kernel (flash_attention_bwd.cu) recomputes P from.  Serving
+//     backward kernel (flash_attention_bwd_sm90.cu) recomputes P from.  Serving
 //     passes null: the same work as without it.
 //   * Grid: (batch x q head, q tile), the q tile reversed so the causal
 //     tiles with the most kv tiles launch first.

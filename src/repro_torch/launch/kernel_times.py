@@ -1,6 +1,6 @@
-"""Time K1, K2, K5, the backward kernels of K4 and K5, RWKV6-7B's decode
-step and Qwen3-14B's prefill and decode step on the card through the
-public API, and print one JSON line.
+"""Time K1, K2, K5, the backward kernels of K4 and K5, K4 in float32,
+RWKV6-7B's decode step, and Qwen3-14B's prefill, decode step and train
+step on the card through the public API, and print one JSON line.
 
     PYTHONPATH=src python3 src/repro_torch/launch/kernel_times.py
     PYTHONPATH=<other checkout>/src python3 src/repro_torch/launch/kernel_times.py
@@ -11,7 +11,7 @@ only what every version of the port has: ``ops.segment_sum``,
 ``ops.substr_find``, ``ops.exists_before``, ``strings.pack_strings``,
 the TPC-H generator's word salad, ``ops.wkv6`` (contiguous inputs, state
 passed), ``flash_attention_fwd_cuda``, ``flash_attention_bwd_cuda``,
-``wkv6_bwd_cuda`` and ``ServeEngine``; where
+their plain versions, ``wkv6_bwd_cuda`` and ``ServeEngine``; where
 ``ops.wkv6`` takes ``state_out`` it also times the decode step's own
 call (strided views, the state written over itself).
 
@@ -33,6 +33,16 @@ call (strided views, the state written over itself).
   strided, no initial state), each call as ``FlashAttentionFn`` and
   ``Wkv6Fn`` make it, whatever kernels the version launches for it, and
   the device time of each of those kernels (``torch.profiler``);
+* K4 in float32, forward (``flash_attention_fwd_cuda``) and backward,
+  at Qwen3-14B's training shape and at ``examples/train_lm.py``'s (B 4,
+  Hq 8, Hkv 4, S 128, D 64), causal, q strided, each call with the device
+  time of each of its kernels; and its errors against the plain versions
+  over long key runs (192 queries over 4096 to 65536 keys, causal and
+  not), where the tensor cores' float32 accumulation drifts;
+* a bf16 Qwen3-14B train step at its published widths, 2 layers, 4 x
+  4096 tokens in its 4 microbatches (adamw, random weights and tokens):
+  the median of 3 warm steps (host clock, ending in the loss's copy to
+  the host);
 * RWKV6-7B at full width with random bf16 weights: 16 requests over 4
   slots, the median decode step (host clock; each step ends in the
   argmax's copy to the host);
@@ -200,7 +210,8 @@ def main() -> int:
 
     # the backward kernels at the training shapes
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_fwd_cuda,
+        flash_attention_bwd_cuda, flash_attention_bwd_plain, flash_attention_fwd_cuda,
+        flash_attention_plain,
     )
     from repro_torch.kernels.wkv6 import wkv6_bwd_cuda
 
@@ -222,6 +233,62 @@ def main() -> int:
     out["wkv6_bwd_train_ms"] = event_ms(bwd, 10)
     out["wkv6_bwd_train_kernels_ms"] = kernel_device_ms(bwd)
     del r, k, v, w, u, dy
+
+    # K4 in float32, the training launcher's default dtype
+    f32 = lambda *s: torch.as_tensor(rng.normal(size=s), device=dev).float()
+    for tag, (B, Hq, Hkv, S, D) in (("qwen3", (1, 40, 8, 4096, 128)),
+                                    ("train_lm", (4, 8, 4, 128, 64))):
+        q = f32(B, S, Hq, D).transpose(1, 2)
+        k, v = f32(B, Hkv, S, D), f32(B, Hkv, S, D)
+        fwd = lambda: flash_attention_fwd_cuda(q, k, v, True)
+        o, lse = fwd()
+        do = f32(B, Hq, S, D)
+        bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
+        reps = 10 if tag == "qwen3" else REPS
+        out[f"flash_attention_f32_fwd_{tag}_ms"] = event_ms(fwd, reps)
+        out[f"flash_attention_f32_fwd_{tag}_kernels_ms"] = kernel_device_ms(fwd)
+        out[f"flash_attention_f32_bwd_{tag}_ms"] = event_ms(bwd, reps)
+        out[f"flash_attention_f32_bwd_{tag}_kernels_ms"] = kernel_device_ms(bwd)
+        del q, k, v, o, lse, do
+    # its errors over long key runs (B 1, Hq 5, Hkv 1, Sq 192, D 128):
+    # o's largest |error| as a share of the float32 tolerance (2e-5 abs
+    # and rel; 1 fails), and dq's, dk's and dv's over the largest plain
+    # gradient (the tolerance is 1e-4)
+    for Sk in (4096, 16384, 32768, 65536):
+        for causal in (True, False):
+            q = f32(1, 192, 5, 128).transpose(1, 2)
+            k, v = f32(1, 1, Sk, 128), f32(1, 1, Sk, 128)
+            o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+            want = flash_attention_plain(q, k, v, causal)
+            do = f32(1, 5, 192, 128)
+            grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+            plain = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+            scale = max(float(g.abs().max()) for g in plain)
+            out[f"flash_attention_f32_errors_Sk{Sk}_{'causal' if causal else 'full'}"] = {
+                "o_share_of_tol": float(((o - want).abs() / (2e-5 + 2e-5 * want.abs())).max()),
+                "dq_dk_dv": [float((g - w).abs().max()) / scale for g, w in zip(grads, plain)]}
+            del q, k, v, o, lse, want, do, grads, plain
+    torch.cuda.empty_cache()
+
+    # a bf16 Qwen3-14B train step, 2 layers at published widths
+    import dataclasses
+
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get("qwen3-14b"), n_layers=2)
+    state = init_train_state(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (4, 4097)), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = make_train_step(cfg)
+    train_ms = []
+    for _ in range(4):  # the first is cold
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        train_ms.append((time.perf_counter() - t) * 1e3)
+    out["qwen3_train_step_2_layers_ms_median"] = float(np.median(train_ms[1:]))
+    del state, batch, step
     torch.cuda.empty_cache()
 
     # RWKV6-7B decode

@@ -301,10 +301,11 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, causal, B, Hq,
     q = q.transpose(1, 2)  # strided, as the model hands it over
     ops.reset_launches()
     got = flash_attention_cuda(q, k, v, causal)
-    # bf16 runs on the tensor cores, f32 on the CUDA cores
+    # both on the tensor cores: bf16, and f32 in split TF32
     bf16 = dtype == torch.bfloat16
-    assert (ops.LAUNCHES["flash_attention_sm90"], ops.LAUNCHES["flash_attention"]) == (
+    assert (ops.LAUNCHES["flash_attention_sm90"], ops.LAUNCHES["flash_attention_f32_sm90"]) == (
         (1, 0) if bf16 else (0, 1))
+    assert sum(ops.LAUNCHES.values()) == 1
     want = flash_attention_plain(q, k, v, causal)
     tol = KERNEL_TOL[dtype][1]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -373,7 +374,7 @@ def test_lm_path_on_the_card_matches_the_cpu(cuda_device):
         toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 96)))
         ops.reset_launches()
         got = lm.prefill(cfg, card, {"tokens": toks.to(cuda_device)})
-        name = "wkv6" if cfg.family == "rwkv6" else "flash_attention"
+        name = "wkv6" if cfg.family == "rwkv6" else "flash_attention_f32_sm90"
         assert ops.LAUNCHES[name] == cfg.n_layers
         want = lm.prefill(cfg, cpu, {"tokens": toks})
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -413,7 +414,7 @@ def test_later_families_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
     ops.reset_launches()
     got = lm.prefill(cfg, card, {name: t.to(cuda_device) for name, t in batch.items()})
     layers = cfg.n_layers // cfg.attn_every if cfg.attn_every else cfg.n_layers
-    assert ops.LAUNCHES["flash_attention"] == layers == sum(ops.LAUNCHES.values())
+    assert ops.LAUNCHES["flash_attention_f32_sm90"] == layers == sum(ops.LAUNCHES.values())
     want = lm.prefill(cfg, cpu, batch)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
@@ -453,7 +454,7 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, causal, B,
     do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).to(dtype)
     ops.reset_launches()
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
-    # bf16 on the tensor cores, float32 on the CUDA cores
+    # both on the tensor cores: bf16, and float32 in split TF32
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == {BWD_KERNELS[dtype]: 1}
     want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     assert max(_rel_errs(got, want)) <= BWD_TOL[dtype]
@@ -515,6 +516,74 @@ def test_flash_attention_bwd_sm90_on_several_tiles_and_heads(cuda_device, B, Hq,
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 112, 128])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,causal", [
+    (1, 5, 1, 77, 200, True), (2, 4, 2, 130, 65, False),
+])
+def test_flash_attention_f32_sm90_forward_and_backward_at_every_head_dim(cuda_device, D, B, Hq,
+                                                                         Hkv, Sq, Sk, causal):
+    """The float32 kernels (split TF32 on the tensor cores) at every head
+    dim they take, over ragged 16-, 32- and 64-row tiles, the causal offset
+    (Sq < Sk) and cross-attention (Sq > Sk): o within the float32
+    tolerance, lse within 1e-4, the gradients within 1e-4 of the largest
+    plain gradient, bit for bit again; their launches and nothing else."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
+    )
+
+    rng = np.random.default_rng(D * Sq + Sk)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).float()
+    q = q.transpose(1, 2)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).float()
+            for _ in range(2))
+    ops.reset_launches()
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).float()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
+        "flash_attention_f32_sm90": 1, "flash_attention_bwd_f32_sm90": 2}
+    tol = KERNEL_TOL[torch.float32][1]
+    torch.testing.assert_close(o, flash_attention_plain(q, k, v, causal), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, causal), rtol=1e-4, atol=1e-4)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert max(_rel_errs(got, want)) <= BWD_TOL[torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [(1, 10, 2, 4096, 4096, 128),
+                                              (1, 5, 1, 192, 32768, 128)])
+def test_flash_attention_bwd_f32_sm90_over_a_long_group(cuda_device, causal, B, Hq, Hkv, Sq, Sk,
+                                                        D):
+    """Sums over long runs, where the tensor cores' float32 accumulation
+    alone drifts past the tolerance: dK and dV over many query rows (a
+    group of 5 heads over 4096 queries: 20480 rows, as Qwen3-14B trains),
+    and O and dQ over 32768 keys (12288 products a row); o within the
+    float32 tolerance, lse within 1e-4, the gradients within 1e-4 of the
+    largest plain gradient, bit for bit again."""
+    from repro_torch.kernels.flash_attention import (
+        attention_lse_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_fwd_cuda,
+    )
+
+    rng = np.random.default_rng(Sk + causal)
+    q = torch.as_tensor(rng.normal(size=(B, Sq, Hq, D)), device=cuda_device).float().transpose(1, 2)
+    k, v = (torch.as_tensor(rng.normal(size=(B, Hkv, Sk, D)), device=cuda_device).float()
+            for _ in range(2))
+    o, lse = flash_attention_fwd_cuda(q, k, v, causal)
+    tol = KERNEL_TOL[torch.float32][1]
+    torch.testing.assert_close(o, flash_attention_plain(q, k, v, causal), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, attention_lse_plain(q, k, causal), rtol=1e-4, atol=1e-4)
+    do = torch.as_tensor(rng.normal(size=o.shape), device=cuda_device).float()
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    assert max(_rel_errs(got, want)) <= BWD_TOL[torch.float32]
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T,D,with_state", [(17, 64, True), (300, 64, False), (129, 128, True),
                                             (257, 16, False), (33, 32, True)])
@@ -567,7 +636,8 @@ def test_kernel_wrappers_refuse_inputs_that_want_a_gradient(cuda_device):
     y.sum().backward()
     assert q.grad is not None and u.grad is not None and u.grad.abs().max() > 0
     assert {n: c for n, c in ops.LAUNCHES.items() if c} == {
-        "flash_attention": 1, "flash_attention_bwd": 1, "wkv6": 1, "wkv6_bwd": 1}
+        "flash_attention_f32_sm90": 1, "flash_attention_bwd_f32_sm90": 1, "wkv6": 1,
+        "wkv6_bwd": 1}
 
 
 @pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "rwkv6-7b"])

@@ -231,7 +231,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     y2, s2 = tref.wkv6_reference(r, kk, vv, w, u)
     torch.testing.assert_close(y, y2)
     torch.testing.assert_close(s, s2)
-    assert ops.LAUNCHES["flash_attention"] == 0 and ops.LAUNCHES["wkv6"] == 0
+    assert ops.LAUNCHES["flash_attention_f32_sm90"] == 0 and ops.LAUNCHES["wkv6"] == 0
     assert ops.LAUNCHES["flash_attention_sm90"] == 0
 
 
