@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # TPC-H SF 1, all 22 queries, then the LM path
+    python3 chip_smoke.py            # TPC-H SF 1 (22 queries), TPC-DS SF 1, then the LM path
     python3 chip_smoke.py --sf 0.05  # a quicker TPC-H main path
 
 Phases, each of which fails the run (non-zero exit) on any error:
@@ -79,6 +79,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card (K2's find and K1 in ``curate``), K4's and K5's forward and
    backward launches of a step asserted, step time, tokens per second,
    peak memory and a profiled step;
+9. (run after phase 4) TPC-DS and storage: the five TPC-DS queries at SF
+   1 from ``--seed`` on frames on the card, twice (cold and warm; each
+   query that groups must launch the segment sum; pass 2 held to pass 1),
+   every segment sum of pass 1 held to its plain version on its own
+   inputs (the largest on each path also timed), pass 1 against the five
+   queries on the CPU over the same tables (none may be empty), a
+   profiled warm pass; the store path: ``as_store`` date-sorted into
+   chunks of 65,536 rows, one year of ``store_sales`` loaded through
+   ``from_store`` with its predicate pushed (chunks must be skipped; the
+   frame equals ``from_arrays`` plus the same filter, row for row), q3
+   over frames from the stores equal to q3 over ``from_arrays`` frames;
+   the loaders: ``store_sales`` through ``write_tfb`` / ``read_tfb`` onto
+   the card, exact, also with a projection and a predicate, and
+   ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
+   its join spans;
 5. one JSON line describing every kernel, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -177,6 +192,14 @@ MIXTURE = {"web": 1.0, "books": 2.0, "wiki": 1.5, "code": 1.0}
 TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "grad_ssd": 5e-4}
 # Card vs CPU on the LM path (phase 7): float32 logits within 1e-4.
 LM_CHECK_TOL = 1e-4
+# TPC-DS and the store (phase 9): the scale factor (2,880,000 store_sales
+# rows), the store's chunk rows, the queries that group (each launches K1),
+# the year of sales the store path loads, and the rows of customer
+# written to CSV and read back
+TPCDS_SF = 1.0
+STORE_CHUNK_ROWS = 1 << 16
+TPCDS_GROUPING = ("q3", "q6", "q7", "q42")
+STORE_YEAR = 2000
 #: the kernels of training's backward (no TPU counterpart)
 BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90", "wkv6_bwd")
 
@@ -513,21 +536,29 @@ def segment_row(torch, seg, dev, label, v, g, m) -> dict:
     return row
 
 
+def record_segment_sums(ops, seg, calls: dict, current: list, paths=("few", "mid", "many")):
+    """Wrap ``ops.segment_sum_cuda`` so that each call on one of ``paths``
+    also keeps a copy of its inputs in ``calls``, under the query named in
+    ``current[0]``.  Returns the function it wrapped, to put back after."""
+    real = ops.segment_sum_cuda
+
+    def recording(values, ids, m):
+        if seg.segment_path(m) in paths:
+            calls.setdefault(current[0], []).append((values.clone(), ids.clone(), m))
+        return real(values, ids, m)
+
+    ops.segment_sum_cuda = recording
+    return real
+
+
 def mid_path_rows(torch, seg, ops, QF, frames, sf: float, dev) -> list:
     """K1's mid path (17 to 4096 groups) at main-path shapes: one pass of
     the queries records the inputs of every mid-path call by query; the
     largest call of the query with the most of them is timed, and the
     largest call of the pass where that is another."""
     calls: dict = {}
-    real = ops.segment_sum_cuda
     current = [None]
-
-    def recording(values, ids, m):
-        if seg.segment_path(m) == "mid":
-            calls.setdefault(current[0], []).append((values.clone(), ids.clone(), m))
-        return real(values, ids, m)
-
-    ops.segment_sum_cuda = recording
+    real = record_segment_sums(ops, seg, calls, current, paths=("mid",))
     try:
         for q in sorted(QF.ALL, key=lambda s: int(s[1:])):
             current[0] = q
@@ -1729,9 +1760,9 @@ def train_phase(torch, ops, dev, seed: int) -> dict:
 # ----------------------------------------------------------------------
 # phases 3 and 4: the main path, and the card against the CPU
 # ----------------------------------------------------------------------
-def run_queries(torch, QF, frames, sf: float):
+def run_queries(torch, QF, frames, sf: float, names=None):
     results, ms = {}, {}
-    for q in sorted(QF.ALL, key=lambda s: int(s[1:])):
+    for q in names or sorted(QF.ALL, key=lambda s: int(s[1:])):
         t = time.perf_counter()
         res = QF.ALL[q](frames, sf=sf, apply_limit=False)
         if not isinstance(res, dict):
@@ -1843,6 +1874,220 @@ def check_finite(q: str, res: dict) -> None:
         arr = np.asarray(arr)
         if arr.dtype.kind == "f" and not np.isfinite(arr).all():
             raise AssertionError(f"{q}.{name}: non-finite values")
+
+
+def compare_exact(label: str, got: dict, want: dict) -> None:
+    """Every column bit for bit (NaN equal to NaN), in the same order."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    for name in want:
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        same = a.shape == b.shape and (
+            np.array_equal(a, b, equal_nan=True) if a.dtype.kind == "f" else (a == b).all())
+        if not same:
+            raise AssertionError(f"{label}.{name}: not equal, row for row")
+
+
+def run_counted(torch, ops, QF, frames, sf: float, current=None):
+    """``run_queries``, with each query's segment-sum launches; the query
+    running is named in ``current[0]`` where a list is given."""
+    results, ms, k1 = {}, {}, {}
+    for q in sorted(QF.ALL, key=lambda s: int(s[1:])):
+        if current is not None:
+            current[0] = q
+        before = ops.LAUNCHES["segment_sum"]
+        res, t = run_queries(torch, QF, frames, sf, [q])
+        results[q], ms[q] = res[q], t[q]
+        k1[q] = ops.LAUNCHES["segment_sum"] - before
+    return results, ms, k1
+
+
+def tpcds_segment_rows(torch, seg, dev, calls: dict, launched: int) -> list:
+    """Every segment sum of one TPC-DS pass held to its plain version on
+    its own inputs; the largest call on each path is timed (a row of K1's
+    other shapes)."""
+    n_calls = sum(len(cs) for cs in calls.values())
+    if n_calls != launched:
+        raise AssertionError(f"recorded {n_calls} segment sums of {launched} launched")
+    largest: dict = {}
+    for q, cs in calls.items():
+        errs = [check_segment_sum(torch, seg, v, g, m, f"TPC-DS {q}", quiet=True)
+                for v, g, m in cs]
+        seen = [[v.numel(), m, seg.segment_path(m), str(v.dtype)[6:], e]
+                for (v, _, m), e in zip(cs, errs)]
+        log(f"  {q}: each segment sum of pass 1 against its plain version "
+            f"[n, m, path, dtype, max_abs_err]: {json.dumps(seen)}")
+        for v, g, m in cs:
+            path = seg.segment_path(m)
+            if path not in largest or v.numel() > largest[path][1].numel():
+                largest[path] = (q, v, g, m)
+    return [segment_row(torch, seg, dev, f"TPC-DS {q}: its largest {path}-path sum ({v.dtype})",
+                        v, g, m)
+            for path, (q, v, g, m) in sorted(largest.items())]
+
+
+def tpcds_phase(torch, ops, seg, dev, seed: int) -> list:
+    """Phase 9: TPC-DS at SF 1 on the card, the store path, the loaders,
+    the card against the CPU, and a traced query (see the docstring).
+    Returns K1's rows at the largest TPC-DS call on each of its paths."""
+    import tempfile
+
+    from repro_torch import obs, store
+    from repro_torch.core import TensorFrame, col
+    from repro_torch.core import io as tio
+    from repro_torch.core import oracle as orc
+    from repro_torch.core.config import CONFIG
+    from repro_torch.data import tpcds
+    from repro_torch.queries import tpcds_frames as QD
+
+    log(f"phase 9: TPC-DS SF {TPCDS_SF}, the store path and the loaders")
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    tables = tpcds.generate(sf=TPCDS_SF, seed=seed)
+    t_gen = time.perf_counter() - t
+    mem = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    frames = tpcds.as_frames(tables, device=dev)
+    torch.cuda.synchronize()
+    t_frames = time.perf_counter() - t
+    frames_gb = (torch.cuda.memory_allocated() - mem) / 1e9
+    ss = tables["store_sales"]
+    n_ss = len(ss["ss_item_sk"])
+    host_mb = sum(a.nbytes for cols in tables.values() for a in cols.values()) / 1e6
+    log(f"  data: seed {seed}: generate {t_gen:.3f} s, frames on {dev} {t_frames:.3f} s, "
+        f"store_sales {n_ss} rows, host arrays {host_mb:.3f} MB (object columns at 8 bytes "
+        f"a cell), the frames take {frames_gb:.3f} GB of device memory")
+
+    # the five queries twice; pass 1 keeps a copy of each segment sum's inputs
+    ops.reset_launches()
+    calls, current = {}, [None]
+    real = record_segment_sums(ops, seg, calls, current)
+    try:
+        res1, ms1, k1_1 = run_counted(torch, ops, QD, frames, TPCDS_SF, current)
+    finally:
+        ops.segment_sum_cuda = real
+    res2, ms2, k1_2 = run_counted(torch, ops, QD, frames, TPCDS_SF)
+    log(f"  segment_sum launches of both passes by path: {json.dumps(ops.PATH_LAUNCHES)}")
+    for q in ms1:
+        first = next(iter(res2[q].values()))
+        rows = 1 if np.ndim(first) == 0 else len(first)
+        floats = [c for c in res1[q] if np.asarray(res1[q][c]).dtype.kind == "f"]
+        bits = all(np.array_equal(res2[q][c], res1[q][c], equal_nan=True) for c in floats)
+        log(f"  {q}: cold {ms1[q]:.3f} ms, warm {ms2[q]:.3f} ms, rows {rows}, segment_sum "
+            f"launches {k1_1[q]} + {k1_2[q]}, floats of pass 2 bit-equal to pass 1: {bits}")
+        check_finite(q, res2[q])
+        compare_results(q, res2[q], res1[q])
+    log(f"  total: cold {sum(ms1.values()):.3f} ms, warm {sum(ms2.values()):.3f} ms")
+    idle = [q for q in TPCDS_GROUPING if not (k1_1[q] and k1_2[q])]
+    if idle:
+        raise AssertionError(f"TPC-DS queries that group but launched no segment_sum: {idle}")
+    k1_rows = tpcds_segment_rows(torch, seg, dev, calls, sum(k1_1.values()))
+    del calls
+
+    # the card against the CPU on the same tables: pass 1's results
+    t = time.perf_counter()
+    on_cpu, _ = run_queries(torch, QD, tpcds.as_frames(tables, device="cpu"), TPCDS_SF)
+    t_cpu = time.perf_counter() - t
+    for q in on_cpu:
+        first = next(iter(on_cpu[q].values()))
+        if np.ndim(first) and len(first) == 0:
+            raise AssertionError(f"{q} is empty on the CPU at SF {TPCDS_SF}: nothing to compare")
+        compare_results(q, res1[q], on_cpu[q])
+    log(f"  card vs CPU at SF {TPCDS_SF}: 5 queries agree, none empty (ints/codes/order "
+        f"exact, floats rtol {QUERY_RTOL}; the CPU's pass {t_cpu:.3f} s)")
+    del on_cpu
+    wall, busy, per_op, _ = session(torch, lambda: run_queries(torch, QD, frames, TPCDS_SF))
+    log(f"  profiled warm pass: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %)")
+    for key, (ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"    {ms:.3f} ms  {count} x {key[:100]}")
+
+    # the store path: date-sorted chunks, one year of sales pushed down
+    t = time.perf_counter()
+    stores = tpcds.as_store(tables, chunk_rows=STORE_CHUNK_ROWS, sort_fact_by_date=True)
+    t_store = time.perf_counter() - t
+    ss_store = stores["store_sales"]
+    if ss_store.n_chunks != -(-n_ss // STORE_CHUNK_ROWS):
+        raise AssertionError(f"store_sales in {ss_store.n_chunks} chunks")
+    dd = tables["date_dim"]
+    year = dd["d_date_sk"][dd["d_year"] == STORE_YEAR]
+    lo, hi = int(year.min()), int(year.max())
+    cols = ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk", "ss_quantity",
+            "ss_ext_sales_price"]
+    preds = [store.Pred("ss_sold_date_sk", "between", (lo, hi))]
+    t = time.perf_counter()
+    scanned = store.scan(ss_store, cols, preds)
+    t_scan = time.perf_counter() - t
+    t = time.perf_counter()
+    pushed = TensorFrame.from_store(ss_store, cols, preds, result=scanned, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t
+    log(f"  store: as_store {t_store:.3f} s ({ss_store.n_chunks} chunks of {STORE_CHUNK_ROWS} "
+        f"rows); from_store of {STORE_YEAR}'s sales: scan {1e3 * t_scan:.3f} ms, to the card "
+        f"{1e3 * t_load:.3f} ms, {pushed.nrows} rows, chunks_skipped {scanned.chunks_skipped} "
+        f"of {scanned.chunks_total}, rows_scanned {scanned.rows_scanned}")
+    if scanned.chunks_skipped == 0:
+        raise AssertionError("the pushed predicate skipped no chunk")
+    order = np.argsort(ss["ss_sold_date_sk"], kind="stable")
+    by_date = TensorFrame.from_arrays({c: ss[c][order] for c in cols}, device=dev)
+    filtered = by_date.filter((col("ss_sold_date_sk") >= lo) & (col("ss_sold_date_sk") <= hi))
+    compare_exact("from_store vs from_arrays + filter", pushed.to_dict(), filtered.to_dict())
+    t = time.perf_counter()
+    store_frames = {name: TensorFrame.from_store(tb, device=dev) for name, tb in stores.items()}
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t
+    got = QD.q3(store_frames, sf=TPCDS_SF, apply_limit=False)
+    want = QD.q3(frames, sf=TPCDS_SF, apply_limit=False)
+    orc.assert_odf_equal(orc.frame_to_odf(got), orc.frame_to_odf(want), sort=True, rtol=QUERY_RTOL)
+    log(f"  store: every table through from_store {t_all:.3f} s; q3 over them equals q3 over "
+        f"from_arrays frames ({got.nrows} rows, sorted rows, floats rtol {QUERY_RTOL})")
+    del store_frames, by_date, filtered, pushed
+
+    # the loaders: tfb v2 and CSV, onto the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/store_sales.tfb"
+        t = time.perf_counter()
+        tio.write_tfb(path, ss)
+        t_write = time.perf_counter() - t
+        t = time.perf_counter()
+        back = tio.read_tfb(path, device=dev)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t
+        compare_exact("read_tfb", back.to_dict(), ss)
+        few = ss["ss_quantity"] < 10
+        part = tio.read_tfb(path, ["ss_item_sk", "ss_ext_sales_price"],
+                            [store.Pred("ss_quantity", "<", 10)], device=dev)
+        compare_exact("read_tfb (projection, predicate)", part.to_dict(),
+                      {c: ss[c][few] for c in ("ss_item_sk", "ss_ext_sales_price")})
+        cust = tables["customer"]
+        t = time.perf_counter()
+        tio.write_csv(f"{tmp}/customer.csv", cust)
+        t_csv_w = time.perf_counter() - t
+        t = time.perf_counter()
+        cback = tio.read_csv(f"{tmp}/customer.csv", device=dev)
+        torch.cuda.synchronize()
+        t_csv_r = time.perf_counter() - t
+        compare_exact("read_csv", cback.to_dict(), cust)
+    log(f"  loaders: write_tfb (v2) {1e3 * t_write:.3f} ms, read_tfb to the card "
+        f"{1e3 * t_read:.3f} ms ({n_ss} rows, {len(ss)} columns, exact; projection and "
+        f"predicate: {part.nrows} rows, exact); customer ({len(cust['c_customer_sk'])} rows) "
+        f"write_csv {1e3 * t_csv_w:.3f} ms, read_csv to the card {1e3 * t_csv_r:.3f} ms, exact")
+    del back, part, cback
+
+    # one traced query
+    CONFIG.tracing = "on"
+    obs.clear_trace()
+    try:
+        QD.q3(frames, sf=TPCDS_SF, apply_limit=False).to_dict()
+        torch.cuda.synchronize()
+        spans = obs.aggregate_operators(obs.spans())
+    finally:
+        CONFIG.tracing = "off"
+    log(f"  traced q3, operators: {json.dumps(spans)}")
+    if spans.get("core.join", {}).get("count") != 2:
+        raise AssertionError(f"traced q3 recorded no two join spans: {spans}")
+    log(f"  phase 9 wall {time.perf_counter() - t_phase:.3f} s")
+    return k1_rows
 
 
 def compare_results(q: str, got: dict, want: dict) -> None:
@@ -1965,6 +2210,10 @@ def main() -> int:
     log(f"  22 queries agree (ints/codes/order exact, floats rtol {QUERY_RTOL})")
     del small, on_card, on_cpu
 
+    # phase 9: TPC-DS, the store and the loaders
+    shapes["segment_sum"] += tpcds_phase(torch, ops, seg, dev, args.seed)
+    torch.cuda.empty_cache()
+
     # phases 6 and 7: the LM path at full width, then card vs CPU
     lm_runs = lm_phase(torch, ops, dev, args.seed)
     f32_runs = lm_check_phase(torch, ops, dev)
@@ -2028,7 +2277,8 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
             "backward": name in BACKWARD_KERNELS,
-            # K1's q1 shapes and its mid path, K4's later families' shapes,
+            # K1's q1 shapes, its mid path and TPC-DS's largest call on
+            # each path, K4's later families' shapes,
             # K5's prefill shape (0 launches on the serving path)
             "other_shapes": [{key: r[key] for key in timed} for r in rows[1:]],
         })

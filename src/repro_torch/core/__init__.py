@@ -17,6 +17,7 @@ from .expr import (
     udf,
 )
 from .join import join
+from .io import read_csv, read_csv_arrays, read_tfb, read_tfb_arrays, write_csv, write_tfb
 
 __all__ = [
     "CONFIG",
@@ -33,4 +34,10 @@ __all__ = [
     "parse_date",
     "udf",
     "join",
+    "read_csv",
+    "read_csv_arrays",
+    "read_tfb",
+    "read_tfb_arrays",
+    "write_csv",
+    "write_tfb",
 ]

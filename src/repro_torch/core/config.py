@@ -29,6 +29,24 @@ class EngineConfig:
     late_materialization: bool = True
     # Device of new frames when the caller names none.
     device: str = "cuda"
+    # Transient-I/O retry budget (repro_torch.resilience.retry): spill and
+    # store reads and writes retry OSError-class failures up to io_retries
+    # times with exponential backoff starting at io_retry_base_s.
+    io_retries: int = 3
+    io_retry_base_s: float = 0.005
+    # Byte budget for host-side intermediates held by the spill manager
+    # (repro_torch.store.spill).  None = unbounded (never spill); small
+    # budgets force LRU spills to .tfb v2 chunk files with transparent
+    # re-hydration on access.
+    memory_budget_bytes: Optional[int] = None
+    # Directory for spill files; None = a per-process temp dir cleaned
+    # at exit (spilled frames are additionally deleted on GC).
+    spill_dir: Optional[str] = None
+    # Span tracing (repro_torch.obs): 'off' = no spans (one branch, no
+    # allocation on every instrumented path), 'on' = operator-level spans
+    # (join algorithm picks, spill events), 'detailed' = additionally
+    # per-chunk spans (retry backoffs).
+    tracing: str = "off"
 
 
 CONFIG = EngineConfig()

@@ -192,6 +192,13 @@ class OffloadedColumn:
         return self._cache[key]
 
 
+def _offload(arr: np.ndarray, device, fact=None) -> OffloadedColumn:
+    """``arr`` offloaded with an identity row indexer on ``device``;
+    ``fact`` is its (codes, dictionary) when already factorized."""
+    cache = {} if fact is None else {"fact": fact}
+    return OffloadedColumn(arr, torch.arange(arr.shape[0], dtype=INT, device=device), cache)
+
+
 def _empty_tensor(n: int, dtype, device) -> torch.Tensor:
     return torch.zeros((n, 0), dtype=dtype, device=device)
 
@@ -479,11 +486,6 @@ class TensorFrame:
         order: List[str] = []
         n = None
 
-        def offload(arr, fact=None):
-            cache = {} if fact is None else {"fact": fact}
-            idx = torch.arange(arr.shape[0], dtype=INT, device=dev)
-            return OffloadedColumn(arr, idx, cache)
-
         for name, arr in data.items():
             arr = np.asarray(arr)
             if n is None:
@@ -503,7 +505,7 @@ class TensorFrame:
             elif encoding.is_string_like(arr):
                 forced = encode.get(name)
                 if forced == "obj":
-                    offloaded[name] = offload(arr)
+                    offloaded[name] = _offload(arr, dev)
                     continue
                 codes, dictionary = encoding.factorize(arr)
                 if forced == "dict" or dictionary.shape[0] <= threshold * max(1, n):
@@ -511,11 +513,109 @@ class TensorFrame:
                 else:
                     # keep the factorization: the offloaded column's
                     # codes() would compute exactly this again
-                    offloaded[name] = offload(arr, (codes, dictionary))
+                    offloaded[name] = _offload(arr, dev, (codes, dictionary))
             else:
                 raise TypeError(f"column {name}: unsupported dtype {arr.dtype}")
         n = 0 if n is None else n
         return _assemble_frame(int_cols, float_cols, offloaded, order, n, dev)
+
+    @staticmethod
+    def from_store(
+        table,
+        columns: Optional[Sequence[str]] = None,
+        predicates: Sequence = (),
+        *,
+        card_threshold: Optional[float] = None,
+        encode: Optional[Dict[str, str]] = None,
+        result=None,
+        device=None,
+    ) -> "TensorFrame":
+        """Materialize a frame on ``device`` (default ``CONFIG.device``)
+        from a ``repro_torch.store`` chunked table.
+
+        ``predicates`` are sargable store conjuncts
+        (``repro_torch.store.Pred``): zone maps skip whole chunks and the
+        survivors are row-filtered host-side, so only matching rows ever
+        reach the device tensors (scan pushdown).  Dictionary columns
+        keep the store's *interned* dictionary — no re-factorization, and
+        frames built from the same store share dictionary objects, making
+        join-time dictionary merges identity operations.  Validity
+        bitmaps become hidden ``__v__`` columns.
+
+        Zone-map statistics thread through: columns the chunk stats prove
+        unique (or duplicate-bearing) seed the frame's stats cache, so
+        downstream ``join(algorithm="auto")`` picks its build strategy
+        without sorting the build side.
+
+        ``result`` short-circuits the scan with a precomputed
+        ``store.ScanResult`` for exactly these columns/predicates.
+        """
+        from .. import store as _store
+
+        dev = resolve_device(device)
+        if result is None:
+            result = _store.scan(table, columns, list(predicates))
+        threshold = CONFIG.card_threshold if card_threshold is None else card_threshold
+        encode = encode or {}
+        n = result.nrows
+        int_cols: List[Tuple[str, np.ndarray, str, Optional[np.ndarray]]] = []
+        float_cols: List[Tuple[str, np.ndarray]] = []
+        offloaded: Dict[str, OffloadedColumn] = {}
+        order: List[str] = []
+
+        for name, mc in result.columns.items():
+            order.append(name)
+            forced = encode.get(name)
+            if mc.dictionary is not None:
+                if forced == "obj":
+                    safe = np.clip(mc.values, 0, max(0, mc.dictionary.shape[0] - 1))
+                    offloaded[name] = _offload(mc.dictionary[safe], dev)
+                else:
+                    int_cols.append((name, mc.values, "dict", mc.dictionary))
+            elif mc.ctype == "float":
+                float_cols.append((name, mc.values))
+            elif mc.ctype == "str":
+                # plain (high-cardinality) strings: the policy of
+                # from_arrays — dict-encode below the threshold, offload
+                # above it
+                if forced == "obj":
+                    offloaded[name] = _offload(mc.values, dev)
+                    continue
+                codes, dictionary = encoding.factorize(mc.values)
+                if forced == "dict" or dictionary.shape[0] <= threshold * max(1, n):
+                    int_cols.append((name, codes, "dict", dictionary))
+                else:
+                    offloaded[name] = _offload(mc.values, dev, (codes, dictionary))
+            else:  # int / date / bool days already in physical form
+                int_cols.append((name, mc.values, mc.ctype, None))
+        # explicit store validity bitmaps become the engine's hidden
+        # __v__ companion columns (float nulls stay NaN-encoded)
+        for name, mc in result.columns.items():
+            if mc.validity is not None and not bool(mc.validity.all()):
+                vname = _valid_name(name)
+                order.append(vname)
+                int_cols.append((vname, mc.validity.astype(np.int64), "bool", None))
+        out = _assemble_frame(int_cols, float_cols, offloaded, order, n, dev)
+        # thread zone-map uniqueness/distinct/bounds stats into the frame
+        # so joins and group-bys skip their probing work
+        unfiltered = not predicates and n == table.nrows
+        for name in order:
+            if name not in table.columns:
+                continue
+            col = table.columns[name]
+            if col.ctype == "float":
+                continue
+            unique, distinct = col.uniqueness_from_stats()
+            if unique is True:
+                # uniqueness survives any row filtering (subset)
+                out.set_stats(name, unique=True, distinct=distinct if unfiltered else None)
+            elif unique is False and unfiltered:
+                out.set_stats(name, unique=False, distinct=distinct)
+            if n and col.ctype in ("int", "date", "bool") and col.encoding != "dict":
+                mins, maxs, exact = col.zone_bounds()
+                if exact and not np.isnan(mins).all():
+                    out.set_stats(name, vmin=int(np.nanmin(mins)), vmax=int(np.nanmax(maxs)))
+        return out
 
     @staticmethod
     def from_state(state: dict, device=None) -> "TensorFrame":

@@ -37,6 +37,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
+from .. import obs
 from ..kernels import ops
 from ..kernels.segment_reduce import run_ranks_sorted
 from . import encoding
@@ -70,6 +71,9 @@ STATS = {
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
+
+
+obs.metrics.register_group("core.join", lambda: dict(STATS), reset_stats)
 
 
 def _as_list(x) -> List[str]:
@@ -463,7 +467,14 @@ def join(
             rcodes = torch.where(v, rcodes, -2)
 
     if how in ("semi", "anti"):
-        exists = membership(lcodes, rcodes)
+        with obs.span(
+            "core.join",
+            how=how,
+            algorithm="membership",
+            probe_rows=left.nrows,
+            build_rows=right.nrows,
+        ):
+            exists = membership(lcodes, rcodes)
         return left.mask_rows(exists if how == "semi" else ~exists)
     if how not in ("inner", "left"):
         raise ValueError(f"unsupported join type {how!r}")
@@ -474,7 +485,14 @@ def join(
     nb = right.nrows
     matched_counts = None
     if algorithm == "sortmerge":
-        lrows, rrows = sort_merge_join_rows(lcodes, rcodes)
+        with obs.span(
+            "core.join",
+            how=how,
+            algorithm="sort_merge",
+            probe_rows=left.nrows,
+            build_rows=nb,
+        ):
+            lrows, rrows = sort_merge_join_rows(lcodes, rcodes)
     else:
         unique_build = False
         if algorithm in ("auto", "direct") and nb > 0:
@@ -492,11 +510,19 @@ def join(
                 unique_build = m_build == nb
                 if not null_keys:
                     right.set_stats(list(right_on), unique=unique_build, distinct=m_build)
-        if unique_build and algorithm != "sorted":
-            matched, lrows, rrows = direct_address_rows(lcodes, rcodes, domain)
-            matched_counts = matched.to(INT)
-        else:
-            matched_counts, lrows, rrows = sorted_probe_rows(lcodes, rcodes)
+        algo = "direct_address" if unique_build and algorithm != "sorted" else "sorted_probe"
+        with obs.span(
+            "core.join",
+            how=how,
+            algorithm=algo,
+            probe_rows=left.nrows,
+            build_rows=nb,
+        ):
+            if algo == "direct_address":
+                matched, lrows, rrows = direct_address_rows(lcodes, rcodes, domain)
+                matched_counts = matched.to(INT)
+            else:
+                matched_counts, lrows, rrows = sorted_probe_rows(lcodes, rcodes)
 
     inner = _hstack(left.take(lrows), right.take(rrows), name_map)
     if how == "inner":

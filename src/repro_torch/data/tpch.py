@@ -286,3 +286,25 @@ def as_frames(tables: Tables, device=None, **kwargs):
         name: TensorFrame.from_arrays(cols, device=device, **kwargs)
         for name, cols in tables.items()
     }
+
+
+def as_store(tables: Tables, *, chunk_rows: int = 1 << 16, sort_fact_by_date: bool = False):
+    """Tables as chunked ``repro_torch.store`` tables.
+
+    ``sort_fact_by_date`` orders lineitem by ``l_shipdate`` and orders
+    by ``o_orderdate`` before chunking — the date-clustered layout real
+    fact tables have, which is what makes zone maps selective on date
+    predicates (a time-ordered chunk grid skips everything outside the
+    predicate's date range).
+    """
+    from repro_torch import store
+
+    out = {}
+    for name, cols in tables.items():
+        cols = dict(cols)
+        key = {"lineitem": "l_shipdate", "orders": "o_orderdate"}.get(name)
+        if sort_fact_by_date and key is not None:
+            order = np.argsort(cols[key], kind="stable")
+            cols = {c: v[order] for c, v in cols.items()}
+        out[name] = store.Table.from_arrays(cols, chunk_rows=chunk_rows)
+    return out
