@@ -43,9 +43,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel's launches counted in it and its device time read from it (a
    query is profiled again, up to ``PROFILE_TRIES`` sessions, while a
    kernel it launched shows no device time), and the three slowest warm
-   queries once more under ``cProfile``;
-4. the card against the CPU plain path on all 22 queries at SF 0.01:
-   ints, codes and row order exactly, floats within rtol 1e-8;
+   queries once more under ``cProfile``; then (3d) the SQL front end on
+   the same frames: the 22 TPC-H SQL texts through ``repro_torch.sql``
+   twice (plan time, then cold and warm execution), each result held to
+   its frame query (the same column names, the same rows, floats within
+   rtol 1e-8) and pass 2 to pass 1; K1 must launch in every text whose
+   plan groups through it and K2's find in q9, q13 and q16 (launches
+   printed by path and by form), q15's revenue SUM run twice (how many
+   of its sums differ in their bits); then the 22 texts over store tables
+   built from the same arrays (``as_store``, fact tables sorted by
+   date, chunks of 65,536 rows), each equal to the in-memory SQL
+   result, and q6's pushed ``l_shipdate`` scan, whose skipped chunks
+   the store's scan counts, run through the plan;
+4. the card against the CPU plain path on all 22 queries and the 22 SQL
+   texts at SF 0.01: ints, codes and row order exactly, floats within
+   rtol 1e-8;
 6. the LM path at full width with random weights from ``--seed``:
    Qwen3-14B prefilled at B=1, S=4096 (exactly one launch of the bf16
    tensor-core attention kernel per layer, none of the f32 one) and
@@ -94,8 +106,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the card, exact, also with a projection and a predicate, and
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
-5. one JSON line describing every kernel, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+5. one JSON line of the SQL pass's launches (phase 3d), one JSON line
+   describing every kernel (its launches those of its main path), the
+   card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device; imports nothing of the JAX package.
 """
@@ -1902,6 +1916,185 @@ def run_counted(torch, ops, QF, frames, sf: float, current=None):
     return results, ms, k1
 
 
+# ----------------------------------------------------------------------
+# phase 3d: the SQL front end
+# ----------------------------------------------------------------------
+#: the aggregates that reach K1 (a grouped min or max does not)
+K1_AGGS = ("size", "count", "nunique", "sum", "mean")
+#: the TPC-H texts whose LIKE runs on a dictionary of at least 2048
+#: entries, which the packed path evaluates with K2's find
+SQL_K2_QUERIES = ("q9", "q13", "q16")
+#: q15's revenue view (its FROM item), a float SUM over 10,000 groups at SF 1
+Q15_REVENUE = (
+    "SELECT l_suppkey, SUM(l_extendedprice * (1 - l_discount)) AS r FROM lineitem "
+    "WHERE l_shipdate >= DATE '1996-01-01' AND l_shipdate < DATE '1996-04-01' "
+    "GROUP BY l_suppkey")
+
+
+def groups_through_k1(plan) -> bool:
+    from repro_torch.sql.lower import plan_nodes
+    from repro_torch.sql.plan import Aggregate
+
+    return any(isinstance(n, Aggregate) and n.keys and any(fn in K1_AGGS for _, fn, _ in n.aggs)
+               for n in plan_nodes(plan))
+
+
+def result_odf(res: dict) -> dict:
+    """A result's host columns as the oracle's lists (None for NaN and
+    missing strings, dates as days), the form ``assert_odf_equal``
+    compares as sorted rows."""
+    out = {}
+    for name, arr in res.items():
+        arr = np.asarray(arr)
+        if arr.dtype.kind == "M":
+            out[name] = arr.astype("datetime64[D]").astype(np.int64).tolist()
+        elif arr.dtype.kind == "f":
+            out[name] = [None if v != v else v for v in arr.tolist()]
+        elif arr.dtype.kind in "iub":
+            out[name] = arr.tolist()
+        else:
+            out[name] = [None if v is None else str(v) for v in arr.tolist()]
+    return out
+
+
+def compare_sets(orc, label: str, got: dict, want: dict) -> None:
+    """The same column names in the same order, and the same rows as sets
+    (ints and strings exact, floats within QUERY_RTOL); a scalar frame
+    query's ``{name: value}`` against a one-row SQL result by value."""
+    if list(got) != list(want):
+        raise AssertionError(f"{label}: columns {list(got)} != {list(want)}")
+    if all(np.ndim(v) == 0 for v in want.values()):
+        for name, v in want.items():
+            a = np.asarray(got[name])
+            if a.shape != (1,) or not np.isclose(a[0], v, rtol=QUERY_RTOL, atol=0.0):
+                raise AssertionError(f"{label}.{name}: {a} != {v}")
+        return
+    try:
+        orc.assert_odf_equal(result_odf(got), result_odf(want), sort=True, rtol=QUERY_RTOL)
+    except AssertionError as exc:
+        raise AssertionError(f"{label}: rows differ: {exc}") from None
+
+
+def sql_pass(torch, ops, sql, scope, texts: dict, device=None):
+    """Each text through ``sql.execute`` once (host clock ending in a
+    synchronisation, the result read back included, as in
+    ``run_queries``), with each query's K1 and K2 launches."""
+    results, ms, k1, k2 = {}, {}, {}, {}
+    for q, text in texts.items():
+        before = dict(ops.LAUNCHES)
+        t = time.perf_counter()
+        res = sql.execute(text, scope, device=device).to_dict()
+        torch.cuda.synchronize()
+        ms[q] = (time.perf_counter() - t) * 1e3
+        results[q] = res
+        k1[q] = ops.LAUNCHES["segment_sum"] - before["segment_sum"]
+        k2[q] = ops.LAUNCHES["substr_find"] - before["substr_find"]
+    return results, ms, k1, k2
+
+
+def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: dict) -> dict:
+    """Phase 3d: the 22 TPC-H texts through ``repro_torch.sql`` on phase
+    3's frames, twice, each held to its frame query; then over store
+    tables built from the same arrays.  Returns the SQL pass's launches."""
+    from repro_torch import sql, store
+    from repro_torch.core import TensorFrame
+    from repro_torch.core import oracle as orc
+    from repro_torch.data import tpch
+    from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
+    from repro_torch.sql.lower import _scan_pred, scan_cache_key
+    from repro_torch.sql.plan import walk_scans
+
+    log("phase 3d: the SQL front end: the 22 TPC-H texts twice on phase 3's frames, then over "
+        "store tables")
+    t_phase = time.perf_counter()
+    names = sorted(TPCH_SQL, key=lambda s: int(s[1:]))
+    texts = {q: sql_text(q, sf) for q in names}
+    plan_ms, plans = {}, {}
+    for q in names:
+        t = time.perf_counter()
+        plans[q] = sql.plan_query(texts[q], frames)
+        plan_ms[q] = (time.perf_counter() - t) * 1e3
+
+    ops.reset_launches()
+    res1, ms1, k1, k2 = sql_pass(torch, ops, sql, frames, texts)
+    by_path, by_form = dict(ops.PATH_LAUNCHES), dict(sfk.MODE_LAUNCHES)
+    res2, ms2, _, _ = sql_pass(torch, ops, sql, frames, texts)
+    launched = {name: ops.LAUNCHES[name] for name in ("segment_sum", "substr_find")}
+    for q in names:
+        first = next(iter(res2[q].values()))
+        log(f"  {q}: plan {plan_ms[q]:.3f} ms, cold {ms1[q]:.3f} ms, warm {ms2[q]:.3f} ms, "
+            f"rows {len(first)}; launches of pass 1: segment_sum {k1[q]}, substr_find {k2[q]}")
+        check_finite(q, res2[q])
+        compare_results(f"SQL {q}, pass 2 against pass 1", res2[q], res1[q])
+        compare_sets(orc, f"SQL {q} against its frame query", res1[q], frame_results[q])
+    log(f"  total: plan {sum(plan_ms.values()):.3f} ms, cold {sum(ms1.values()):.3f} ms, "
+        f"warm {sum(ms2.values()):.3f} ms (execute includes its own planning); every result "
+        f"equals its frame query (sorted rows, floats rtol {QUERY_RTOL}) and pass 2 pass 1")
+    log(f"  segment_sum launches of pass 1 by path: {json.dumps(by_path)}; substr_find by "
+        f"form: {json.dumps(by_form)}")
+    grouped = [q for q in names if groups_through_k1(plans[q])]
+    silent = [q for q in grouped if k1[q] == 0] + [q for q in SQL_K2_QUERIES if k2[q] == 0]
+    if silent:
+        raise AssertionError(f"SQL queries that launched no kernel of their path: {silent}")
+    if by_form["find"] == 0:
+        raise AssertionError("the SQL pass never launched substr_find's find form")
+    if sum(by_form.values()) != sum(k2.values()):
+        raise AssertionError(f"substr_find launches by form {by_form} do not add up to {k2}")
+    log(f"  K1 launched in each of the {len(grouped)} queries whose plan groups through it "
+        f"({', '.join(grouped)}); K2 in {', '.join(SQL_K2_QUERIES)}")
+
+    # K1's float sums: q15's revenue SUM twice (the lowering computes it
+    # once a query, since q15 compares two spellings of it for equality)
+    rev = [sql.execute(Q15_REVENUE, frames).column("r") for _ in range(2)]
+    differ = int(np.count_nonzero(rev[0] != rev[1]))
+    rel = float(np.max(np.abs(rev[0] - rev[1]) / np.abs(rev[1])))
+    log(f"  q15's revenue SUM run twice: {differ} of {len(rev[0])} sums differ in their "
+        f"bits (largest relative difference {rel:.3e})")
+
+    # the same texts over store tables of the same arrays (tpch.as_store,
+    # one table at a time for its time)
+    stores, t_tables = {}, {}
+    for name, cols in tables.items():
+        t = time.perf_counter()
+        stores.update(tpch.as_store({name: cols}, chunk_rows=STORE_CHUNK_ROWS,
+                                    sort_fact_by_date=True))
+        t_tables[name] = time.perf_counter() - t
+    t_store = sum(t_tables.values())
+    pushing = [q for q in names
+               if any(s.predicates for s in walk_scans(sql.plan_query(texts[q], stores)))]
+    t = time.perf_counter()
+    res_s, ms_s, _, _ = sql_pass(torch, ops, sql, stores, texts, device=dev)
+    t_pass = time.perf_counter() - t
+    for q in names:
+        compare_sets(orc, f"store SQL {q} against in-memory SQL", res_s[q], res2[q])
+    q6 = sql.plan_query(texts["q6"], stores)
+    (scan,) = [s for s in walk_scans(q6) if s.predicates]
+    preds = [_scan_pred(c, scan.alias) for c in scan.predicates]
+    t = time.perf_counter()
+    scanned = store.scan(stores[scan.table], list(scan.columns), preds)
+    t_scan = time.perf_counter() - t
+    if scanned.chunks_skipped == 0:
+        raise AssertionError(f"q6's pushed scan of {scan.table} skipped no chunk")
+    cache = {scan_cache_key(scan): TensorFrame.from_store(
+        stores[scan.table], list(scan.columns), preds, result=scanned, device=dev)}
+    compare_results("store SQL q6 through its counted scan",
+                    sql.execute_plan(q6, stores, scan_cache=cache, device=dev).to_dict(),
+                    res_s["q6"])
+    slowest = sorted(ms_s, key=ms_s.get, reverse=True)[:3]
+    log(f"  store: as_store {t_store:.3f} s ({len(stores)} tables, chunks of "
+        f"{STORE_CHUNK_ROWS} rows, fact tables sorted by date; by table, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in t_tables.items()})}); the 22 texts over them "
+        f"{t_pass:.3f} s (slowest {', '.join(f'{q} {ms_s[q]:.1f} ms' for q in slowest)}), each "
+        f"equal to the in-memory SQL result; {len(pushing)} texts push a predicate into a "
+        f"scan ({', '.join(pushing)})")
+    log(f"  q6's pushed scan of {scan.table}: {scanned.chunks_skipped} of {scanned.chunks_total} "
+        f"chunks skipped, {scanned.nrows} rows kept, scan {1e3 * t_scan:.3f} ms; q6 through it "
+        f"equals the store pass's q6")
+    del stores, cache
+    log(f"  phase 3d wall {time.perf_counter() - t_phase:.3f} s")
+    return dict(launches=launched, by_path=by_path, by_form=by_form)
+
+
 def tpcds_segment_rows(torch, seg, dev, calls: dict, launched: int) -> list:
     """Every segment sum of one TPC-DS pass held to its plain version on
     its own inputs; the largest call on each path is timed (a row of K1's
@@ -2197,18 +2390,31 @@ def main() -> int:
     shapes["segment_sum"] += mid_path_rows(torch, seg, ops, QF, frames, args.sf, dev)
     profile_pass(torch, ops, QF, frames, args.sf)
     host_profile(torch, QF, frames, args.sf, sorted(ms2, key=ms2.get, reverse=True)[:3])
+    # phase 3d: the SQL front end on the same frames and tables
+    sql_run = sql_phase(torch, ops, sf, frames, tables, args.sf, dev, res2)
     del frames, tables, res1, res2
     torch.cuda.empty_cache()
 
-    # phase 4: card vs CPU plain path
+    # phase 4: card vs CPU plain path, the frame queries and the SQL texts
+    from repro_torch import sql
+    from repro_torch.queries.tpch_sql import sql_text
+
     log(f"phase 4: card vs CPU at SF {CHECK_SF}")
     small = tpch.generate(sf=CHECK_SF, seed=args.seed)
-    on_card, _ = run_queries(torch, QF, tpch.as_frames(small, device=dev), CHECK_SF)
-    on_cpu, _ = run_queries(torch, QF, tpch.as_frames(small, device="cpu"), CHECK_SF)
+    card_frames = tpch.as_frames(small, device=dev)
+    cpu_frames = tpch.as_frames(small, device="cpu")
+    on_card, _ = run_queries(torch, QF, card_frames, CHECK_SF)
+    on_cpu, _ = run_queries(torch, QF, cpu_frames, CHECK_SF)
     for q in on_cpu:
         compare_results(q, on_card[q], on_cpu[q])
     log(f"  22 queries agree (ints/codes/order exact, floats rtol {QUERY_RTOL})")
-    del small, on_card, on_cpu
+    texts = {q: sql_text(q, CHECK_SF) for q in on_cpu}
+    sql_card, _, _, _ = sql_pass(torch, ops, sql, card_frames, texts)
+    sql_cpu, _, _, _ = sql_pass(torch, ops, sql, cpu_frames, texts)
+    for q in texts:
+        compare_results(f"SQL {q}", sql_card[q], sql_cpu[q])
+    log(f"  22 SQL texts agree (ints/codes/order exact, floats rtol {QUERY_RTOL})")
+    del small, card_frames, cpu_frames, on_card, on_cpu, sql_card, sql_cpu
 
     # phase 9: TPC-DS, the store and the loaders
     shapes["segment_sum"] += tpcds_phase(torch, ops, seg, dev, args.seed)
@@ -2286,6 +2492,11 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
     log(f"wall time {time.perf_counter() - t_all:.3f} s")
+    # the SQL pass's launches (phase 3d, two passes of the 22 texts), apart
+    # from each kernel's main-path launches in the kernels line
+    log(json.dumps({"sql_launches": sql_run["launches"],
+                    "segment_sum_by_path_pass1": sql_run["by_path"],
+                    "substr_find_by_form_pass1": sql_run["by_form"]}))
     log(json.dumps({"kernels": kernels}))
     log(gpu_name_power())
     log(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get
+from repro_torch.core import oracle as orc
 from repro_torch.data import tpch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
@@ -26,7 +27,8 @@ from repro_torch.kernels.substr_find import (
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
 from repro_torch.models import lm
 from repro_torch.models.config import reduced
-from repro_torch.queries import tpch_frames
+from repro_torch import sql
+from repro_torch.queries import tpch_frames, tpch_sql
 from repro_torch.serve.engine import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
@@ -219,6 +221,28 @@ def test_query_on_the_card_matches_the_cpu_path(cuda_device, qname):
             np.testing.assert_allclose(got[c], want[c], rtol=1e-8, atol=0)
         else:
             np.testing.assert_array_equal(got[c], want[c])
+
+
+@pytest.mark.parametrize("qname", ["q1", "q6", "q13", "q15"])
+def test_sql_on_the_card_matches_the_cpu(cuda_device, qname):
+    """The SQL front end on the card: each aggregate launches K1, q13's
+    NOT LIKE over the o_comment dictionary K2's find; the result is the
+    CPU's (ints, codes and row sets exact, floats rtol 1e-8), run after
+    run (q15 compares two spellings of one float SUM for equality)."""
+    tables = tpch.generate(sf=0.01, seed=1)
+    text = tpch_sql.sql_text(qname, 0.01)
+    frames = tpch.as_frames(tables, device=cuda_device)
+    want = sql.execute(text, tpch.as_frames(tables, device="cpu"))
+    for _ in range(4):
+        ops.reset_launches()
+        got = sql.execute(text, frames)
+        assert got.device.type == "cuda"
+        assert ops.LAUNCHES["segment_sum"] > 0
+        if qname == "q13":
+            assert MODE_LAUNCHES["find"] > 0
+        assert got.column_names == want.column_names
+        orc.assert_odf_equal(orc.frame_to_odf(got), orc.frame_to_odf(want), sort=True,
+                             rtol=1e-8)
 
 
 # tolerances of tests/test_kernels.py: (wkv6, attention) per dtype

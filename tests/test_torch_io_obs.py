@@ -343,7 +343,14 @@ def test_counter_gauge_histogram_snapshot_diff_reset():
         for v in (1.0, 2.0, 3.0, 4.0, 10.0):
             hh.observe(v)
     snap = metrics.snapshot()
-    assert snap["obs"] == j_obs.metrics.snapshot()["obs"]
+
+    # this test's metrics: a registry also holds the ones earlier tests of
+    # the process registered (tests/test_obs.py's "race.count" in the
+    # reference's)
+    def own(s):
+        return {name: s["obs"][name] for name in ("t.count", "t.gauge", "t.hist")}
+
+    assert own(snap) == own(j_obs.metrics.snapshot())
     assert snap["obs"]["t.count"] == 3 and snap["obs"]["t.gauge"] == 42
     assert snap["obs"]["t.hist"]["count"] == 5 and snap["obs"]["t.hist"]["max"] == 10.0
     before = metrics.snapshot()

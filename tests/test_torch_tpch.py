@@ -177,7 +177,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not loaded, loaded\n"
-        "assert 'repro_torch.queries.tpch_frames' in sys.modules\n"
+        "for name in ('repro_torch.queries.tpch_frames', 'repro_torch.queries.tpch_sql',\n"
+        "             'repro_torch.sql.lower', 'repro_torch.sql.analyze', 'repro_torch.sql.udf'):\n"
+        "    assert name in sys.modules, name\n"
         "print('clean')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
