@@ -10,7 +10,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. each kernel against its plain PyTorch version on the card, at edge
    shapes (2a: the segment sum at the bounds of its three paths, with
-   runs, unaligned lengths and offset pointers; the substring find and
+   runs, unaligned lengths and offset pointers, and on each path and
+   float dtype five launches on one input returning the same bits, also
+   where segments differ in magnitude by 2^100; the substring find and
    its fused exists_before at row widths 1 to 128, base pointers 0 to 15
    bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
    on strided inputs with its state written in place; the backward
@@ -38,26 +40,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
    must rise during that run (the first pass's launches are printed by
    path for the segment sum and by form for the substring search, whose
    fused exists_before must have run), and the segment sum's mid path
-   timed at the inputs of the query that launches it most; then a third
+   timed at the inputs of the query that launches it most (each K1 row
+   beside ``index_add_`` and ``index_add_`` under
+   ``torch.use_deterministic_algorithms``); then a third
    pass under ``torch.profiler`` for the device's busy share, each ported
    kernel's launches counted in it and its device time read from it (a
    query is profiled again, up to ``PROFILE_TRIES`` sessions, while a
    kernel it launched shows no device time), and the three slowest warm
    queries once more under ``cProfile``; then (3d) the SQL front end on
-   the same frames: the 22 TPC-H SQL texts through ``repro_torch.sql``
-   twice (plan time, then cold and warm execution), each result held to
+   the same frames, op by op (``CONFIG.compiled = "off"``): the 22 TPC-H
+   SQL texts through ``repro_torch.sql`` twice (plan time, then cold and
+   warm execution), each result held to
    its frame query (the same column names, the same rows, floats within
    rtol 1e-8) and pass 2 to pass 1; K1 must launch in every text whose
    plan groups through it and K2's find in q9, q13 and q16 (launches
-   printed by path and by form), q15's revenue SUM run twice (how many
-   of its sums differ in their bits); then the 22 texts over store tables
+   printed by path and by form), q15's revenue SUM run twice (none of
+   its sums may differ in its bits); then the 22 texts over store tables
    built from the same arrays (``as_store``, fact tables sorted by
    date, chunks of 65,536 rows), each equal to the in-memory SQL
    result, and q6's pushed ``l_shipdate`` scan, whose skipped chunks
-   the store's scan counts, run through the plan;
+   the store's scan counts, run through the plan; then (3e) the same
+   texts compiled (``CONFIG.compiled = "force"``), one CUDA graph per
+   plan: a cold run (trace, warm-up, capture, replay; K1 and K2 calls
+   in the graph counted through their wrappers), two warm replays, each
+   result equal to 3d's op-by-op result (where the text has ORDER BY,
+   its key columns row by row; rows tied on every key may swap) and to
+   its frame query, 22 captures and no fallback; a
+   literal of each text that has one changed: a cache hit without a
+   capture, equal to op by op for that literal; q15 four times, its row
+   each time; q1 under ``auto``; one profiled warm pass (the kernels
+   inside the graphs by device name: K1 and K2 calls must equal the
+   captured ones; busy and idle share); a PreparedStatement over q6, 1
+   capture and 3 hits; trace, capture, cold and warm ms per text beside
+   op by op's, and the peak allocated GB;
 4. the card against the CPU plain path on all 22 queries and the 22 SQL
-   texts at SF 0.01: ints, codes and row order exactly, floats within
-   rtol 1e-8;
+   texts at SF 0.01 (60,000 lineitem rows: the texts take the compiled
+   route under ``auto`` on both devices): ints, codes and row order
+   exactly, floats within rtol 1e-8;
 6. the LM path at full width with random weights from ``--seed``:
    Qwen3-14B prefilled at B=1, S=4096 (exactly one launch of the bf16
    tensor-core attention kernel per layer, none of the f32 one) and
@@ -106,7 +125,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the card, exact, also with a projection and a predicate, and
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
-5. one JSON line of the SQL pass's launches (phase 3d), one JSON line
+5. one JSON line of the compiled pass (phase 3e), one of the SQL pass's
+   launches (phase 3d), one JSON line
    describing every kernel (its launches those of its main path), the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -142,13 +162,18 @@ PEAK_BF16_OPS_PER_S = 989e12
 PEAK_TF32_OPS_PER_S = 495e12
 TF32_PRODUCTS = 3
 
-# Tolerances of kernel vs plain version on one call.  Float atomics add
-# in an order that changes from run to run: float64 agrees to rtol 1e-12,
-# float32 (24-bit mantissa, up to millions of terms) to rtol 1e-4, of the
-# largest result; for values of both signs (the edge shapes), of the
-# largest sum of |value| over a segment, the scale of a sum's rounding
-# in any order (a sum that cancels can be far smaller than its terms).
+# Tolerances of kernel vs plain version on one call.  The kernel's float
+# sums are exact integer sums on each segment's own grid, the same bits
+# on every launch (phase 2a checks that), and the plain version adds in
+# row order: float64 agrees to rtol 1e-12, float32 (24-bit mantissa, up
+# to millions of terms) to rtol 1e-4, of the largest result; for values
+# of both signs (the edge shapes), of the largest sum of |value| over a
+# segment, the scale of a sum's rounding in any order (a sum that cancels
+# can be far smaller than its terms).  The 2^100-spread shape holds each
+# segment to its own sum of |value|.
 RTOL = {"float64": 1e-12, "float32": 1e-4}
+# Launches of one K1 input that must return the same bits (phase 2a).
+K1_REPEATS = 5
 QUERY_RTOL = 1e-8
 # Scale factor of the card-vs-CPU check (phase 4), and timed repetitions
 # of each kernel at each main-path shape (phase 2b).
@@ -462,8 +487,49 @@ def edge_phase(torch, seg, sf, dev) -> None:
     )
     if not torch.equal(empty, torch.zeros(5, dtype=torch.float64, device=dev)):
         raise AssertionError("segment_sum of no rows must be zeros")
+    segment_repeat_phase(torch, seg, dev, rng)
 
     substr_edge_phase(torch, sf, dev)
+
+
+def segment_repeat_phase(torch, seg, dev, rng) -> None:
+    """K1 is deterministic: on each path and value dtype, K1_REPEATS
+    launches on one input (ids at random, so rows of a segment meet in
+    any order) return the same bits, and agree with the plain version;
+    then the 2^100-spread shape: segments of about 1e15 beside segments of
+    about 1e-15 in one call, each held to its own sum of |value|."""
+    n = 3_000_001
+    for dtype in (torch.float32, torch.float64):
+        for m in (6, 1000, 1_500_000):
+            g = torch.as_tensor(segment_ids(rng, n, m, "unsorted"), device=dev)
+            v = torch.as_tensor(rng.normal(size=n) * 1e3, device=dev).to(dtype)
+            outs = [seg.segment_sum_cuda(v, g, m) for _ in range(K1_REPEATS)]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"segment_sum {dtype} m={m}: {K1_REPEATS} launches on one "
+                                     "input returned different bits")
+            check_segment_sum(torch, seg, v, g, m, f"repeat n={n}", quiet=True, signed=True)
+            log(f"  segment_sum {dtype} m={m} path {seg.segment_path(m)}: {K1_REPEATS} launches "
+                f"on one input of {n} rows bit-identical, within tolerance of the plain version")
+    for dtype in (torch.float32, torch.float64):
+        for m in (8, 1000, 1_500_000):
+            g = torch.as_tensor(rng.integers(0, m, n), device=dev)
+            # even segments near 1e15, odd ones near 1e-15: a spread of 2^100
+            mag = torch.where(g % 2 == 0, 1e15, 1e-15).to(torch.float64)
+            v = (torch.as_tensor(rng.normal(size=n), device=dev) * mag).to(dtype)
+            outs = [seg.segment_sum_cuda(v, g, m) for _ in range(K1_REPEATS)]
+            if not all(torch.equal(outs[0], o) for o in outs[1:]):
+                raise AssertionError(f"segment_sum spread {dtype} m={m}: launches differ in bits")
+            want = seg.segment_sum_plain(v.to(torch.float64), g, m)
+            scale = seg.segment_sum_plain(v.to(torch.float64).abs(), g, m)
+            rtol = RTOL[str(dtype).replace("torch.", "")]
+            err = ((outs[0].to(torch.float64) - want).abs() / scale.clamp(min=1e-300)).max()
+            small = (scale > 0) & (scale < 1e-6)
+            if not bool(small.any()) or float(err) > rtol:
+                raise AssertionError(f"segment_sum spread {dtype} m={m}: error {float(err)!r} of "
+                                     f"a segment's own sum of |value| (rtol {rtol})")
+            log(f"  segment_sum spread 2^100 {dtype} m={m} path {seg.segment_path(m)}: "
+                f"bit-identical over {K1_REPEATS} launches, largest error "
+                f"{float(err)!r} of a segment's own sum of |value| (rtol {rtol})")
 
 
 def check_hash32x2(torch, cols, label):
@@ -536,16 +602,27 @@ def segment_row(torch, seg, dev, label, v, g, m) -> dict:
     and writes each sum once."""
     err = check_segment_sum(torch, seg, v, g, m, label)
     k_ms = cuda_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), REPS)
-    d_ms = device_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), "segment_sum_", REPS)
+    # a float call launches four kernels (clear, exponents, limbs, finish):
+    # the device time of a call is the sum of their mean launches
+    d_ms = device_ms(torch, lambda: seg.segment_sum_cuda(v, g, m), "segment_sum_", REPS,
+                     per_call=True)
     p_ms = cuda_ms(torch, lambda: seg.segment_sum_plain(v, g, m), REPS)
-    l_ms = cuda_ms(
-        torch, lambda: torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, g, v), REPS
-    )
+
+    def library():
+        return torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, g, v)
+
+    l_ms = cuda_ms(torch, library, REPS)
+    # the library's deterministic route: the yardstick of a deterministic sum
+    torch.use_deterministic_algorithms(True)
+    try:
+        det_ms = cuda_ms(torch, library, REPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
     nbytes = v.numel() * (v.element_size() + 8) + m * v.element_size()
     b_ms, b_by = bound_ms(nbytes, v.numel())
     row = dict(label=label, n=v.numel(), m=m, dtype=str(v.dtype), path=seg.segment_path(m),
                max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms, library_ms=l_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               library_deterministic_ms=det_ms, bound_ms=b_ms, bound_by=b_by)
     log("   ", json.dumps(row))
     return row
 
@@ -1993,20 +2070,24 @@ def sql_pass(torch, ops, sql, scope, texts: dict, device=None):
 
 
 def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: dict) -> dict:
-    """Phase 3d: the 22 TPC-H texts through ``repro_torch.sql`` on phase
-    3's frames, twice, each held to its frame query; then over store
-    tables built from the same arrays.  Returns the SQL pass's launches."""
+    """Phase 3d: the 22 TPC-H texts through ``repro_torch.sql`` op by op
+    (``CONFIG.compiled = "off"``; phase 3e compiles them) on phase 3's
+    frames, twice, each held to its frame query; then over store tables
+    built from the same arrays.  Returns the SQL pass's launches and its
+    second pass's results and times."""
     from repro_torch import sql, store
     from repro_torch.core import TensorFrame
     from repro_torch.core import oracle as orc
+    from repro_torch.core.config import CONFIG
     from repro_torch.data import tpch
     from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
     from repro_torch.sql.lower import _scan_pred, scan_cache_key
     from repro_torch.sql.plan import walk_scans
 
-    log("phase 3d: the SQL front end: the 22 TPC-H texts twice on phase 3's frames, then over "
-        "store tables")
+    log("phase 3d: the SQL front end op by op: the 22 TPC-H texts twice on phase 3's frames, "
+        "then over store tables")
     t_phase = time.perf_counter()
+    CONFIG.compiled = "off"
     names = sorted(TPCH_SQL, key=lambda s: int(s[1:]))
     texts = {q: sql_text(q, sf) for q in names}
     plan_ms, plans = {}, {}
@@ -2043,13 +2124,13 @@ def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: di
     log(f"  K1 launched in each of the {len(grouped)} queries whose plan groups through it "
         f"({', '.join(grouped)}); K2 in {', '.join(SQL_K2_QUERIES)}")
 
-    # K1's float sums: q15's revenue SUM twice (the lowering computes it
-    # once a query, since q15 compares two spellings of it for equality)
+    # K1's float sums are deterministic: q15's revenue SUM run twice gives
+    # the same bits (q15 compares two spellings of it for equality)
     rev = [sql.execute(Q15_REVENUE, frames).column("r") for _ in range(2)]
     differ = int(np.count_nonzero(rev[0] != rev[1]))
-    rel = float(np.max(np.abs(rev[0] - rev[1]) / np.abs(rev[1])))
-    log(f"  q15's revenue SUM run twice: {differ} of {len(rev[0])} sums differ in their "
-        f"bits (largest relative difference {rel:.3e})")
+    log(f"  q15's revenue SUM run twice: {differ} of {len(rev[0])} sums differ in their bits")
+    if differ:
+        raise AssertionError(f"q15's revenue SUM: {differ} sums differ between two runs")
 
     # the same texts over store tables of the same arrays (tpch.as_store,
     # one table at a time for its time)
@@ -2092,7 +2173,238 @@ def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: di
         f"equals the store pass's q6")
     del stores, cache
     log(f"  phase 3d wall {time.perf_counter() - t_phase:.3f} s")
-    return dict(launches=launched, by_path=by_path, by_form=by_form)
+    CONFIG.compiled = "auto"
+    return dict(launches=launched, by_path=by_path, by_form=by_form, results=res2, ms=ms2)
+
+
+# ----------------------------------------------------------------------
+# phase 3e: compiled SQL, one CUDA graph per plan
+# ----------------------------------------------------------------------
+#: a literal of each text without a DATE literal, changed for phase 3e's
+#: third run (the first DATE literal of the others moves on a day): a
+#: pattern and what its first match becomes
+TEXT_LITERAL_CHANGES = {
+    "q2": (r"p_size = 15", "p_size = 16"),
+    "q9": (r"\(1 - l_discount\)", "(2 - l_discount)"),
+    "q11": (r"\* 0\.[0-9]+", "* 0.5"),  # the fraction, 0.0001 / SF
+    "q17": (r"0\.2 \* AVG", "0.3 * AVG"),
+    "q18": (r"> 300", "> 312"),
+    "q19": (r"BETWEEN 1 AND 11", "BETWEEN 2 AND 11"),
+    "q22": (r"> 0\.00", "> 1.00"),
+}
+#: the device-side names of a K1 call's first kernel (one per wrapper
+#: call: int64 sums are one kernel, float sums start with their exponent
+#: pass) and of a K2 call's kernel
+GRAPH_K1_KEYS = ("IntSum", "ExpFlags")
+GRAPH_K2_KEYS = ("substr_find_rows", "exists_before_rows")
+
+
+def changed_text(q: str, text: str):
+    """``text`` with one literal changed (every copy of it), or None for a
+    text without a numeric or date literal."""
+    import re
+
+    m = re.search(r"DATE '(\d{4}-\d{2}-\d{2})'", text)
+    if m:
+        day = np.datetime64(m.group(1)) + np.timedelta64(1, "D")
+        return text.replace(m.group(0), f"DATE '{day}'")
+    if q in TEXT_LITERAL_CHANGES:
+        pattern, new = TEXT_LITERAL_CHANGES[q]
+        out, count = re.subn(pattern, new, text, count=1)
+        if count != 1:
+            raise AssertionError(f"{q}: no {pattern!r} in its text")
+        return out
+    return None
+
+
+def order_keys(plan):
+    """The ORDER BY columns of a plan (its top Sort, under any LIMIT),
+    or None."""
+    from repro_torch.sql.plan import Limit, Sort
+
+    while isinstance(plan, Limit):
+        plan = plan.child
+    return [name for name, _ in plan.keys] if isinstance(plan, Sort) else None
+
+
+def compare_ordered(orc, label: str, got: dict, want: dict, keys) -> None:
+    """Results of a text with ORDER BY: the same rows (``compare_sets``),
+    and the ORDER BY columns the same value by value down the rows (ints
+    and strings exactly, floats within QUERY_RTOL); rows that tie on
+    every ORDER BY column may come in either order, as SQL leaves them."""
+    compare_sets(orc, label, got, want)
+    if not keys or not set(keys) <= set(want):
+        compare_results(label, got, want)
+        return
+    compare_results(f"{label}, ORDER BY {keys}", {k: got[k] for k in keys},
+                    {k: want[k] for k in keys})
+
+
+def graph_launches(per_op: dict, keys) -> tuple:
+    """(launches, device ms) of the device kernels whose names hold ``keys``
+    (any of them) in a profiler session's ops."""
+    hits = [(ms, n) for key, (ms, n) in per_op.items() if any(k in key for k in keys)]
+    return sum(n for _, n in hits), sum(ms for ms, _ in hits)
+
+
+def compiled_phase(torch, ops, frames, sf: float, sql_run: dict, frame_results: dict) -> dict:
+    """Phase 3e: the 22 TPC-H texts compiled (``CONFIG.compiled =
+    "force"``), one captured CUDA graph each: a cold run (trace, warm-up,
+    capture, replay), two warm runs (replays), each result equal to phase
+    3d's op-by-op result (where the text has ORDER BY, its key columns row
+    by row: rows tied on every key may swap) and
+    to its frame query; a third run with a literal changed, a cache hit
+    without a capture that equals op by op for that literal; q15 four
+    times; q1 under ``auto``; one profiled warm pass (the kernels inside
+    the graphs by their device names); a PreparedStatement."""
+    from repro_torch import sql
+    from repro_torch.core import oracle as orc
+    from repro_torch.core.config import CONFIG
+    from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
+    from repro_torch.serve.engine import PreparedStatement
+    from repro_torch.sql import compile as plan_compile
+
+    log("phase 3e: compiled SQL, one CUDA graph per plan, on phase 3's frames")
+    t_phase = time.perf_counter()
+    names = sorted(TPCH_SQL, key=lambda s: int(s[1:]))
+    texts = {q: sql_text(q, sf) for q in names}
+    stats = plan_compile.STATS
+    plan_compile.clear_cache()
+    plan_compile.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    CONFIG.compiled = "force"
+
+    def counters():
+        return json.dumps({k: v for k, v in stats.items() if k != "plans"})
+
+    def run(text):
+        t = time.perf_counter()
+        res = sql.execute(text, frames).to_dict()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    res, cold, warm, trace_ms, capture_ms, k1, k2 = {}, {}, {}, {}, {}, {}, {}
+    for q in names:
+        before, known = dict(ops.LAUNCHES), set(stats["plans"])
+        res[q], cold[q] = run(texts[q])
+        new = set(stats["plans"]) - known
+        if len(new) != 1:
+            raise AssertionError(f"compiled {q} captured no graph: {counters()}, "
+                                 f"{list(plan_compile._NEGATIVE.values())}")
+        (digest,) = new
+        trace_ms[q] = 1e3 * stats["plans"][digest]["trace_s"]
+        capture_ms[q] = 1e3 * stats["plans"][digest]["compile_s"]
+        # the trace, the warm-up and the capture each call the wrappers once
+        for counts, name in ((k1, "segment_sum"), (k2, "substr_find")):
+            delta = ops.LAUNCHES[name] - before[name]
+            if delta % 3:
+                raise AssertionError(f"compiled {q}: {delta} {name} launches, not 3 a call")
+            counts[q] = delta // 3
+        for _ in range(2):
+            before = dict(ops.LAUNCHES)
+            again, warm[q] = run(texts[q])
+            if dict(ops.LAUNCHES) != before:
+                raise AssertionError(f"compiled {q}: a replay launched through a wrapper")
+            compare_results(f"compiled {q}, warm run against cold", again, res[q])
+    for q in names:
+        check_finite(q, res[q])
+        keys = order_keys(sql.plan_query(texts[q], frames))
+        compare_ordered(orc, f"compiled {q} against op by op", res[q], sql_run["results"][q], keys)
+        compare_sets(orc, f"compiled {q} against its frame query", res[q], frame_results[q])
+        log(f"  {q}: trace {trace_ms[q]:.3f} ms, capture {capture_ms[q]:.3f} ms, cold "
+            f"{cold[q]:.3f} ms, warm replay {warm[q]:.3f} ms (op by op warm "
+            f"{sql_run['ms'][q]:.3f} ms), rows {len(next(iter(res[q].values())))}; K1 calls "
+            f"{k1[q]}, K2 calls {k2[q]} in the graph")
+    if stats["compiles"] != len(names) or stats["fallbacks"] or stats["hits"] != 2 * len(names):
+        raise AssertionError(f"compiled pass: {counters()}")
+    grouped = [q for q in names if groups_through_k1(sql.plan_query(texts[q], frames))]
+    silent = [q for q in grouped if k1[q] == 0] + [q for q in SQL_K2_QUERIES if k2[q] == 0]
+    if silent:
+        raise AssertionError(f"compiled texts whose graph holds no kernel of their path: {silent}")
+    op_ms = sum(sql_run["ms"].values())
+    log(f"  total: trace {sum(trace_ms.values()):.3f} ms, capture {sum(capture_ms.values()):.3f} "
+        f"ms, cold {sum(cold.values()):.3f} ms, warm replay {sum(warm.values()):.3f} ms against "
+        f"op by op warm {op_ms:.3f} ms; {stats['compiles']} captures, 0 fallbacks; every result "
+        f"equals op by op (ORDER BY keys row by row) and its frame query")
+
+    # one literal changed: a hit, no capture, equal to op by op
+    changed = {q: changed_text(q, texts[q]) for q in names}
+    changed = {q: t for q, t in changed.items() if t is not None}
+    for q, text in changed.items():
+        compiles, hits = stats["compiles"], stats["hits"]
+        got, _ = run(text)
+        if stats["compiles"] != compiles or stats["hits"] != hits + 1:
+            raise AssertionError(f"compiled {q} with a literal changed was not a cache hit")
+        CONFIG.compiled = "off"
+        want, _ = run(text)
+        CONFIG.compiled = "force"
+        compare_ordered(orc, f"compiled {q}, literal changed, against op by op", got, want,
+                        order_keys(sql.plan_query(text, frames)))
+    log(f"  a literal changed in {len(changed)} texts ({', '.join(changed)}): each a cache hit "
+        f"with no capture, equal to op by op")
+
+    rows15 = []
+    for _ in range(4):
+        got, _ = run(texts["q15"])
+        rows15.append(len(next(iter(got.values()))))
+        compare_results("compiled q15, again", got, res["q15"])
+    if min(rows15) < 1:
+        raise AssertionError(f"compiled q15 rows over 4 runs: {rows15}")
+    log(f"  q15 four times: rows {rows15}, the same row each time")
+
+    CONFIG.compiled = "auto"
+    hits, skipped = stats["hits"], stats["skipped_small"]
+    got, _ = run(texts["q1"])
+    if stats["hits"] != hits + 1 or stats["skipped_small"] != skipped:
+        raise AssertionError("q1 under compiled='auto' did not take its graph")
+    compare_results("compiled q1 under auto", got, res["q1"])
+    CONFIG.compiled = "force"
+    log(f"  q1 under compiled='auto' ({frames['lineitem'].nrows} lineitem rows >= "
+        f"{CONFIG.compiled_min_rows}): the same graph")
+
+    # one profiled warm pass: the kernels inside the graphs by device name
+    want_k1, want_k2 = sum(k1.values()), sum(k2.values())
+    for attempt in range(1, PROFILE_TRIES + 1):
+        wall, busy, per_op, pad = session(torch, lambda: [run(texts[q]) for q in names])
+        got_k1, ms_k1 = graph_launches(per_op, ("segment_sum_",))
+        calls_k1, _ = graph_launches(per_op, GRAPH_K1_KEYS)
+        calls_k2, ms_k2 = graph_launches(per_op, GRAPH_K2_KEYS)
+        if (calls_k1, calls_k2) == (want_k1, want_k2):
+            break
+        log(f"  profiler session {attempt} of {PROFILE_TRIES}: K1 calls {calls_k1} (want "
+            f"{want_k1}), K2 {calls_k2} (want {want_k2}); pad kernels {pad}")
+    else:
+        raise AssertionError("the profiled compiled pass did not show every kernel call")
+    log(f"  profiled warm pass: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+        f"({100 * busy / wall:.3f} %; idle share {100 - 100 * busy / wall:.3f} %); K1 {calls_k1} "
+        f"calls ({got_k1} kernels) {ms_k1:.3f} ms, K2 {calls_k2} calls {ms_k2:.3f} ms; pad "
+        f"kernels recorded {pad} of {PAD_KERNELS}")
+    for key, (ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"    {ms:.3f} ms  {count} x {key[:100]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    # a PreparedStatement: one capture, then hits
+    plan_compile.clear_cache()
+    plan_compile.reset_stats()
+    ps = PreparedStatement(texts["q6"].replace("l_quantity < 24", "l_quantity < {qty}"), frames)
+    for qty in (24, 25, 23, 30):
+        got = ps.execute(qty=qty).to_dict()
+        if qty == 24:
+            compare_results("PreparedStatement q6", got, res["q6"])
+    if (ps.calls, stats["compiles"], stats["hits"]) != (4, 1, 3):
+        raise AssertionError(f"PreparedStatement: calls {ps.calls}, compiles {stats['compiles']}, "
+                             f"hits {stats['hits']}")
+    log("  PreparedStatement over q6, l_quantity < {qty} for 4 values: 1 capture, 3 hits")
+    plan_compile.clear_cache()
+    CONFIG.compiled = "auto"
+    torch.cuda.empty_cache()
+    log(f"  peak allocated after the compiled pass {peak:.3f} GB; phase 3e wall "
+        f"{time.perf_counter() - t_phase:.3f} s")
+    return dict(trace_ms=sum(trace_ms.values()), capture_ms=sum(capture_ms.values()),
+                warm_ms=sum(warm.values()), op_warm_ms=op_ms, busy_ms=busy, wall_ms=wall,
+                k1_calls=want_k1, k2_calls=want_k2, k1_device_ms=ms_k1, k2_device_ms=ms_k2,
+                peak_gb=peak)
 
 
 def tpcds_segment_rows(torch, seg, dev, calls: dict, launched: int) -> list:
@@ -2392,6 +2704,8 @@ def main() -> int:
     host_profile(torch, QF, frames, args.sf, sorted(ms2, key=ms2.get, reverse=True)[:3])
     # phase 3d: the SQL front end on the same frames and tables
     sql_run = sql_phase(torch, ops, sf, frames, tables, args.sf, dev, res2)
+    # phase 3e: the same texts compiled, one CUDA graph per plan
+    compiled_run = compiled_phase(torch, ops, frames, args.sf, sql_run, res2)
     del frames, tables, res1, res2
     torch.cuda.empty_cache()
 
@@ -2415,6 +2729,11 @@ def main() -> int:
         compare_results(f"SQL {q}", sql_card[q], sql_cpu[q])
     log(f"  22 SQL texts agree (ints/codes/order exact, floats rtol {QUERY_RTOL})")
     del small, card_frames, cpu_frames, on_card, on_cpu, sql_card, sql_cpu
+    # phase 4's texts took the compiled route (auto, SF 0.01): free its graphs
+    from repro_torch.sql import compile as plan_compile
+
+    plan_compile.clear_cache()
+    torch.cuda.empty_cache()
 
     # phase 9: TPC-DS, the store and the loaders
     shapes["segment_sum"] += tpcds_phase(torch, ops, seg, dev, args.seed)
@@ -2483,6 +2802,10 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
             "backward": name in BACKWARD_KERNELS,
+            # K1's float sums give the same bits on every launch (phase 2a)
+            **({"deterministic": True,
+                "library_deterministic_ms": row["library_deterministic_ms"]}
+               if name == "segment_sum" else {}),
             # K1's q1 shapes, its mid path and TPC-DS's largest call on
             # each path, K4's later families' shapes,
             # K5's prefill shape (0 launches on the serving path)
@@ -2494,6 +2817,7 @@ def main() -> int:
     log(f"wall time {time.perf_counter() - t_all:.3f} s")
     # the SQL pass's launches (phase 3d, two passes of the 22 texts), apart
     # from each kernel's main-path launches in the kernels line
+    log(json.dumps({"compiled_sql": compiled_run}))
     log(json.dumps({"sql_launches": sql_run["launches"],
                     "segment_sum_by_path_pass1": sql_run["by_path"],
                     "substr_find_by_form_pass1": sql_run["by_form"]}))

@@ -27,6 +27,15 @@ class EngineConfig:
     # compose gather indices; payloads materialize at pipeline exits.
     # False gives the eager copy-per-op engine.
     late_materialization: bool = True
+    # Whole-plan compilation (repro_torch.sql.compile): 'off' never
+    # compiles, 'force' compiles every supported plan regardless of size,
+    # 'auto' compiles when the scanned base tables total at least
+    # compiled_min_rows rows (small interactive queries skip the trace
+    # cost; repeated large ones amortize it through the plan cache).
+    # Plans with untraceable constructs fall back to op-by-op dispatch
+    # in every mode.
+    compiled: str = "auto"
+    compiled_min_rows: int = 1 << 15
     # Device of new frames when the caller names none.
     device: str = "cuda"
     # Transient-I/O retry budget (repro_torch.resilience.retry): spill and

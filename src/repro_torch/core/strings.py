@@ -9,6 +9,8 @@ its plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -63,11 +65,33 @@ def pack_strings(
 
 
 _PACK_CACHE: dict = {}
+_PINS = threading.local()
+
+
+@contextlib.contextmanager
+def pinning(into: list):
+    """Within the block (this thread), every packed dictionary handed out
+    is also appended to ``into``: a CUDA graph captured meanwhile reads it
+    by address at each replay, after the cache may have dropped it."""
+    outer = getattr(_PINS, "into", None)
+    _PINS.into = into
+    try:
+        yield
+    finally:
+        _PINS.into = outer
 
 
 def pack_strings_cached(values: np.ndarray, max_len: Optional[int], device: torch.device):
     """Cached packing keyed on the array object and device (dictionaries
     are stable objects held by their frames)."""
+    packed = _pack_cached(values, max_len, device)
+    pins = getattr(_PINS, "into", None)
+    if pins is not None:
+        pins.append(packed)
+    return packed
+
+
+def _pack_cached(values: np.ndarray, max_len: Optional[int], device: torch.device):
     key = (id(values), max_len, str(device))
     hit = _PACK_CACHE.get(key)
     if hit is not None and hit[0] is values:
@@ -80,7 +104,8 @@ def pack_strings_cached(values: np.ndarray, max_len: Optional[int], device: torc
 
 
 def _pat_tensor(pat: str, device: torch.device) -> torch.Tensor:
-    return torch.tensor(list(pat.encode("utf-8")), dtype=torch.uint8, device=device)
+    # through a host array: a copy the compiled SQL path can hoist
+    return torch.as_tensor(np.frombuffer(pat.encode("utf-8"), dtype=np.uint8).copy(), device=device)
 
 
 def find_first(

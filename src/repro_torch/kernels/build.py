@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 #: C signature of each kernel source's entry point: (symbol, argtypes).
 SIGNATURES = {
-    "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P]),
+    "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P, _P]),
     "substr_find": ("repro_substr_find", [_I, _P, _P, _P, _P, _I, _P, _I, _L, _I, _P, _P]),
     "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
     "flash_attention_sm90": (

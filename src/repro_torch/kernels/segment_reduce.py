@@ -11,7 +11,11 @@ source's note): ``few`` (m <= ``FEW_SLOTS``, register accumulators),
 ``mid`` (m <= ``SMEM_SLOTS``, shared-memory partials) and ``many``
 (global atomics after runs of equal ids are summed).  ``PATH_LAUNCHES``
 counts the launches of each, beside the kernel's count in
-``build.LAUNCHES``.
+``build.LAUNCHES``.  Every path is deterministic: float sums are exact
+integer sums on a grid of each segment's own (the source's note), so a
+call returns the same bits on every launch, in any row order and under
+CUDA graph capture (the scratch buffer is allocated here, on the call's
+stream, and the path follows from m alone: no host sync).
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int64: 2}
 PATHS = {"few": 0, "mid": 1, "many": 2}
 FEW_SLOTS = 16
 SMEM_SLOTS = 4096
+#: scratch of a float call, per segment: three int64 limbs, two uint32 words
+SCRATCH_BYTES = 32
 #: launches of the kernel by path; zeroed with the launch counts
 PATH_LAUNCHES: Dict[str, int] = {name: 0 for name in PATHS}
 
@@ -44,9 +50,11 @@ def segment_sum_plain(
     """Per-segment sums of ``values`` over int64 ``seg_ids`` in any
     order.  Ids outside ``[0, num_segments)`` are dropped, as
     ``jax.ops.segment_sum`` drops them."""
-    out = torch.zeros((num_segments,), dtype=values.dtype, device=values.device)
+    # dropped rows add into one extra slot, cut off at the end (no
+    # boolean mask: the shape stays static, as a CUDA graph needs)
+    out = torch.zeros((num_segments + 1,), dtype=values.dtype, device=values.device)
     keep = (seg_ids >= 0) & (seg_ids < num_segments)
-    return out.scatter_add_(0, seg_ids[keep], values[keep])
+    return out.scatter_add_(0, torch.where(keep, seg_ids, num_segments), values)[:num_segments]
 
 
 def _check_segment_args(values: torch.Tensor, seg_ids: torch.Tensor) -> None:
@@ -79,11 +87,18 @@ def segment_sum_cuda(
         return out
     fn = build.kernel("segment_sum")
     path = segment_path(num_segments)
+    # float sums: each segment's limbs and exponent (SCRATCH_BYTES a segment)
+    scratch = (
+        torch.empty((SCRATCH_BYTES * num_segments,), dtype=torch.uint8, device=values.device)
+        if values.is_floating_point()
+        else None
+    )
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         err = fn(
             _DTYPE_CODES[values.dtype], PATHS[path], values.data_ptr(), seg_ids.data_ptr(),
-            n, int(num_segments), out.data_ptr(), stream,
+            n, int(num_segments), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), stream,
         )
         build.LAUNCHES["segment_sum"] += 1
         PATH_LAUNCHES[path] += 1

@@ -1,8 +1,8 @@
 """Central metrics registry: one namespace over every engine counter.
 
 Each engine layer keeps its own STATS object (``core.join.STATS``,
-the store's spill and pool counters, the resilience layer's fault and
-retry counts) where it is — those names keep working — but each module
+``sql.compile.STATS``, the store's spill and pool counters, the
+resilience layer's fault and retry counts) where it is — those names keep working — but each module
 registers itself here at import time, so ``obs.metrics.snapshot()``
 reads every layer through one interface and ``reset()`` clears them all
 (the port's test files reset through it before each test).
@@ -263,6 +263,7 @@ def load_engine_groups() -> list:
     (pulls torch — callers wanting the full engine view opt in; a bare
     ``import repro_torch.obs`` stays torch-free).  Returns the group names."""
     import repro_torch.core.join  # noqa: F401
+    import repro_torch.sql.compile  # noqa: F401
     import repro_torch.store  # noqa: F401  (pool + spill)
     import repro_torch.resilience  # noqa: F401  (faults + retries)
 

@@ -11,12 +11,15 @@ prefix.  As in the JAX package, an RWKV6, Mamba2-hybrid or
 cross-attention slot is not reset when it is refilled: the new request
 inherits the previous one's recurrent state and cache prefix.  The
 engine feeds tokens, so a model with ``embed_inputs=False`` is refused.
-The SQL ``PreparedStatement`` of that module is not ported yet.
+
+``PreparedStatement`` is that module's parameterized SQL query over the
+compiled-plan cache (``repro_torch.sql.compile``): one captured CUDA
+graph serves every literal value.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -102,3 +105,40 @@ class ServeEngine:
             self.step()
             done += [r for r in requests if r.done and r not in done]
         return requests
+
+
+class PreparedStatement:
+    """A parameterized SQL query served off the whole-plan compile cache.
+
+    ``template`` is SQL text with ``{name}`` placeholders for *numeric
+    or date literals* (the parameters a serving tier varies per
+    request).  Each ``execute(**params)`` formats and re-plans the text
+    -- cheap host work -- and dispatches through ``sql.execute``; because
+    the compiled-plan cache keys on the plan's *structure* with
+    literals abstracted into parameter slots, every execution after the
+    first replays one captured graph (on the card) whatever the literal
+    values.  Under ``CONFIG.compiled = 'off'`` (or for untraceable
+    plans) this degrades transparently to op-by-op dispatch.
+
+        ps = PreparedStatement(
+            "SELECT ... WHERE l_quantity < {qty}", frames)
+        out = ps.execute(qty=24)   # traces + captures once
+        out = ps.execute(qty=25)   # cache hit, zero new captures
+
+    Raw dict-of-numpy and store entries of ``scope`` go to ``device``
+    (default ``CONFIG.device``); frames stay where they are.
+    """
+
+    def __init__(self, template: str, scope: Dict, device=None):
+        from ..sql.lower import scope_frames
+
+        self.template = template
+        self.frames = scope_frames(scope, device)
+        self.device = device
+        self.calls = 0
+
+    def execute(self, **params):
+        from .. import sql
+
+        self.calls += 1
+        return sql.execute(self.template.format(**params), self.frames, device=self.device)

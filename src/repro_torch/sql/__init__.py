@@ -7,8 +7,10 @@ dataclass nodes (``plan``), rewritten by a rule-based optimizer —
 constant folding, decorrelation, filter and scan pushdown, projection
 pruning (``optimize``) — and lowered op by op onto the TensorFrame
 operators ``filter``/``join``/``groupby``/``sort_values``/``with_column``
-(``lower``).  ``oracle_backend`` interprets the *unoptimized* plan
-row-at-a-time on ``repro_torch.core.oracle`` for differential testing.
+(``lower``), or compiled whole into one captured CUDA graph per plan
+(``compile``, under ``CONFIG.compiled``).  ``oracle_backend``
+interprets the *unoptimized* plan row-at-a-time on
+``repro_torch.core.oracle`` for differential testing.
 
 Public API::
 
@@ -97,14 +99,27 @@ def execute(
 
 
 def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
-    """Execute an already-optimized plan against resolved frames, op by
-    op.
+    """Execute an already-optimized plan against resolved frames.
 
-    ``scan_cache`` maps ``lower.scan_cache_key`` -> pre-materialized
-    TensorFrame of a store-backed Scan (a shared scan made once for
-    several plans); ``device`` places the other store scans (default
-    ``CONFIG.device``).
+    Under ``CONFIG.compiled`` (``auto`` by default) the plan first tries
+    the compiled whole-plan path (``compile``: one captured CUDA graph
+    per plan on the card), which declines store-backed scans, session
+    UDFs, small inputs (``auto``) and plans it cannot trace; the rest
+    run op by op.  ``scan_cache`` maps ``lower.scan_cache_key`` ->
+    pre-materialized TensorFrame of a store-backed Scan (a shared scan
+    made once for several plans); the compiled path is skipped when a
+    cache is supplied (it performs its own scans).  ``device`` places
+    the other store scans (default ``CONFIG.device``).
     """
+    from ..core.config import CONFIG
+
+    # the out-of-core knob (chunk streaming) joins this test when it is ported
+    if CONFIG.compiled != "off" and not scan_cache:
+        from . import compile as _compile
+
+        out = _compile.maybe_execute_compiled(plan, frames)
+        if out is not None:
+            return out
     return lower_plan(plan, frames, scan_cache=scan_cache, device=device)
 
 

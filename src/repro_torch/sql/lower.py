@@ -162,6 +162,10 @@ def _literal_value(e):
 
 def to_expr(e) -> Expr:
     """SQL expression AST -> core trait Expr."""
+    if hasattr(e, "to_core_expr"):
+        # bound plan parameters (repro_torch.sql.compile) lower themselves:
+        # their payload is a device scalar that must not reach lit()
+        return e.to_core_expr()
     if isinstance(e, SCol):
         return col(e.internal)
     if isinstance(e, SLit):

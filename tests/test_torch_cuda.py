@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs import get
 from repro_torch.core import oracle as orc
+from repro_torch.core.config import CONFIG
 from repro_torch.data import tpch
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
@@ -52,7 +53,8 @@ def test_segment_sum_kernel_matches_plain(cuda_device, dtype, n, m):
     if dtype == torch.int64:
         assert torch.equal(got, want)
     else:
-        # float atomics add in an order that changes from run to run
+        # the kernel's exact sums on a grid and the plain version's adds
+        # in row order round differently
         rtol = 1e-12 if dtype == torch.float64 else 1e-4
         torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
 
@@ -98,6 +100,32 @@ def test_segment_sum_paths_match_plain(cuda_device, dtype, m, order):
                 rtol = 1e-12 if dtype == torch.float64 else 1e-4
                 terms = float(segment_sum_plain(v.abs(), g, m).max())
                 torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * max(terms, 1.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [6, 1000, 1_500_000])
+def test_segment_sum_gives_the_same_bits_on_every_launch(cuda_device, dtype, m):
+    """K1 is deterministic on each path: five launches on one input (ids
+    at random, so a segment's rows meet in any order) return the same
+    bits; and a call whose segments differ in magnitude by 2^100 holds
+    each segment to its own scale."""
+    rng = np.random.default_rng(m)
+    n = 1_000_003
+    ids = torch.as_tensor(rng.integers(-1, m + 1, n), device=cuda_device)
+    vals = torch.as_tensor(rng.normal(size=n) * 100, device=cuda_device).to(dtype)
+    outs = [segment_sum_cuda(vals, ids, m) for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    # even segments near 1e15, odd ones near 1e-15
+    ids = torch.as_tensor(rng.integers(0, m, n), device=cuda_device)
+    mag = torch.where(ids % 2 == 0, 1e15, 1e-15).to(torch.float64)
+    vals = (torch.as_tensor(rng.normal(size=n), device=cuda_device) * mag).to(dtype)
+    outs = [segment_sum_cuda(vals, ids, m) for _ in range(5)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    want = segment_sum_plain(vals.double(), ids, m)
+    scale = segment_sum_plain(vals.double().abs(), ids, m)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-4
+    err = (outs[0].double() - want).abs() / scale.clamp(min=1e-300)
+    assert float(err.max()) <= rtol
 
 
 @pytest.mark.parametrize("pat", ["", "a", "special", "x" * 130])
@@ -223,8 +251,17 @@ def test_query_on_the_card_matches_the_cpu_path(cuda_device, qname):
             np.testing.assert_array_equal(got[c], want[c])
 
 
+@pytest.fixture
+def op_by_op():
+    """SQL op by op (the compiled route would take these texts at SF 0.01,
+    and its replays launch the kernels without their wrappers' counts)."""
+    CONFIG.compiled = "off"
+    yield
+    CONFIG.compiled = "auto"
+
+
 @pytest.mark.parametrize("qname", ["q1", "q6", "q13", "q15"])
-def test_sql_on_the_card_matches_the_cpu(cuda_device, qname):
+def test_sql_on_the_card_matches_the_cpu(cuda_device, op_by_op, qname):
     """The SQL front end on the card: each aggregate launches K1, q13's
     NOT LIKE over the o_comment dictionary K2's find; the result is the
     CPU's (ints, codes and row sets exact, floats rtol 1e-8), run after
@@ -243,6 +280,76 @@ def test_sql_on_the_card_matches_the_cpu(cuda_device, qname):
         assert got.column_names == want.column_names
         orc.assert_odf_equal(orc.frame_to_odf(got), orc.frame_to_odf(want), sort=True,
                              rtol=1e-8)
+
+
+@pytest.fixture
+def compiled():
+    from repro_torch.sql import compile as plan_compile
+
+    plan_compile.clear_cache()
+    plan_compile.reset_stats()
+    CONFIG.compiled = "force"
+    yield plan_compile
+    CONFIG.compiled = "auto"
+    plan_compile.clear_cache()
+
+
+@pytest.mark.parametrize("qname", ["q1", "q9", "q13", "q15", "q18"])
+def test_compiled_sql_replays_its_graph(cuda_device, compiled, qname):
+    """A compiled text on the card is one captured CUDA graph: the first
+    run traces and captures it (K1, and K2 in q13, inside: at SF 0.01
+    only q13's dictionary reaches K2's 2048 strings), the
+    next runs replay it (no wrapper launches) with the result of op by
+    op on the card and of the compiled CPU path; q15 returns its row
+    every time."""
+    tables = tpch.generate(sf=0.01, seed=1)
+    text = tpch_sql.sql_text(qname, 0.01)
+    frames = tpch.as_frames(tables, device=cuda_device)
+    want = sql.execute(text, tpch.as_frames(tables, device="cpu"))
+    CONFIG.compiled = "off"
+    dispatch = sql.execute(text, frames)
+    CONFIG.compiled = "force"
+    compiled.reset_stats()
+    ops.reset_launches()
+    first = sql.execute(text, frames)
+    assert compiled.STATS["compiles"] == 1 and compiled.STATS["fallbacks"] == 0
+    # the CPU run above compiled an entry of its own, without a graph
+    (entry,) = [e for e in compiled._CACHE.values() if e.graph is not None]
+    assert isinstance(entry.graph, torch.cuda.CUDAGraph)
+    assert ops.LAUNCHES["segment_sum"] > 0
+    if qname == "q13":
+        assert ops.LAUNCHES["substr_find"] > 0
+    for got in [first] + [None] * 3:
+        if got is None:
+            before = dict(ops.LAUNCHES)
+            got = sql.execute(text, frames)
+            assert dict(ops.LAUNCHES) == before  # a replay, not the wrappers
+        assert got.device.type == "cuda"
+        assert got.column_names == want.column_names
+        if qname == "q15":
+            assert got.nrows == 1
+        for other in (want, dispatch):
+            orc.assert_odf_equal(orc.frame_to_odf(got), orc.frame_to_odf(other), sort=True,
+                                 rtol=1e-8)
+    assert compiled.STATS["hits"] == 3 and compiled.STATS["compiles"] == 1
+
+
+def test_compiled_literal_change_replays_without_capture(cuda_device, compiled):
+    """The same plan with another literal is a hit: no new capture, the
+    literal reaches the graph through its parameter buffer."""
+    tables = tpch.generate(sf=0.01, seed=1)
+    frames = tpch.as_frames(tables, device=cuda_device)
+    cpu = tpch.as_frames(tables, device="cpu")
+    text = tpch_sql.sql_text("q6", 0.01)
+    for qty in (24, 10, 40):
+        t = text.replace("l_quantity < 24", f"l_quantity < {qty}")
+        got = sql.execute(t, frames)
+        CONFIG.compiled = "off"
+        want = sql.execute(t, cpu)
+        CONFIG.compiled = "force"
+        assert orc.frame_to_odf(got)["revenue"][0] == pytest.approx(
+            orc.frame_to_odf(want)["revenue"][0], rel=1e-8)
+    assert compiled.STATS["compiles"] == 1 and compiled.STATS["hits"] == 2
 
 
 # tolerances of tests/test_kernels.py: (wkv6, attention) per dtype

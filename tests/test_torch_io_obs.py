@@ -366,7 +366,7 @@ def test_counter_gauge_histogram_snapshot_diff_reset():
 
 def test_engine_groups_registered_and_share_state():
     assert set(metrics.load_engine_groups()) >= {
-        "core.join", "store.pool", "store.spill", "resilience"}
+        "core.join", "sql.compile", "store.pool", "store.spill", "resilience"}
     t_join.STATS["stats_unique_hits"] += 3
     assert metrics.snapshot()["core.join"]["stats_unique_hits"] == 3
     metrics.reset()

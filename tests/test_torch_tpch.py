@@ -178,7 +178,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not loaded, loaded\n"
         "for name in ('repro_torch.queries.tpch_frames', 'repro_torch.queries.tpch_sql',\n"
-        "             'repro_torch.sql.lower', 'repro_torch.sql.analyze', 'repro_torch.sql.udf'):\n"
+        "             'repro_torch.sql.lower', 'repro_torch.sql.analyze', 'repro_torch.sql.udf',\n"
+        "             'repro_torch.sql.compile', 'repro_torch.serve.engine'):\n"
         "    assert name in sys.modules, name\n"
         "print('clean')\n"
     )
