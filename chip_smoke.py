@@ -58,8 +58,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    its sums may differ in its bits); then the 22 texts over store tables
    built from the same arrays (``as_store``, fact tables sorted by
    date, chunks of 65,536 rows), each equal to the in-memory SQL
-   result, and q6's pushed ``l_shipdate`` scan, whose skipped chunks
-   the store's scan counts, run through the plan; then (3e) the same
+   result (under the default ``out_of_core = "auto"`` the aggregates
+   over lineitem and orders stream chunk by chunk: the texts that
+   streamed are printed), and q6's pushed ``l_shipdate`` scan, whose
+   skipped chunks the store's scan counts, run through the plan; then
+   (3e) the same
    texts compiled (``CONFIG.compiled = "force"``), one CUDA graph per
    plan: a cold run (trace, warm-up, capture, replay; K1 and K2 calls
    in the graph counted through their wrappers), two warm replays, each
@@ -73,6 +76,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    captured ones; busy and idle share); a PreparedStatement over q6, 1
    capture and 3 hits; trace, capture, cold and warm ms per text beside
    op by op's, and the peak allocated GB;
+10. out of core, on 3d's stores: the 22 texts under
+   ``out_of_core = "force"``, each equal to 3d's in-memory result (q1,
+   q6 and q14 must stream, q15 must return its row; the texts that
+   streamed and ``pipeline.STATS`` printed), every K1 call of the
+   streamed q1 and q14 held to its plain version (the largest chunk and
+   merge calls timed beside ``index_add_``), the streamed texts again
+   under a 1 KiB spill budget (bytes spilled and re-read, results
+   unchanged), a profiled forced q1 (idle share), then
+   ``python -m repro_torch.launch.run_capped sweep`` in child processes
+   over the eight tables written to disk: the cap goes between the
+   measured peaks of an uncapped eager and an uncapped streamed child,
+   the eager child must die of ``torch.OutOfMemoryError`` under it and
+   the streamed child must match the uncapped results;
+11. SQL serving: one ``Executor`` over the TPC-H scope (lineitem and
+   orders as stores, the rest as frames), 8 client threads each
+   submitting the 22 texts in an order shuffled from ``--seed`` and only
+   waiting on their futures, each result equal to 3d's; batches,
+   coalesced requests and shared scans counted, none failing; p50 and
+   p99 latency and queries per second; a ``Prepared`` q6 over frames
+   with 8 literals (1 capture, 7 hits, each equal to op by op), a
+   session UDF equal to its inline expression, q21 under a 1 ms
+   deadline (``QueryTimeout``), a request cancelled while queued
+   (``QueryCancelled``) and a session over its in-flight cap
+   (``ResourceExhausted``); K1 and K2 must launch;
 4. the card against the CPU plain path on all 22 queries and the 22 SQL
    texts at SF 0.01 (60,000 lineitem rows: the texts take the compiled
    route under ``auto`` on both devices): ints, codes and row order
@@ -125,9 +152,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the card, exact, also with a projection and a predicate, and
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
-5. one JSON line of the compiled pass (phase 3e), one of the SQL pass's
-   launches (phase 3d), one JSON line
-   describing every kernel (its launches those of its main path), the
+5. one JSON line of the compiled pass (phase 3e), one of phase 10, one
+   of phase 11, one of the SQL pass's launches (phase 3d), one JSON line
+   describing every kernel (its launches those of its main path; K1's
+   and K2's launches in phases 10 and 11 beside them), the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -238,6 +266,8 @@ LM_CHECK_TOL = 1e-4
 TPCDS_SF = 1.0
 STORE_CHUNK_ROWS = 1 << 16
 TPCDS_GROUPING = ("q3", "q6", "q7", "q42")
+# The capped runner's sweep (phase 10): its four child processes together
+CAPPED_TIMEOUT_S = 900
 STORE_YEAR = 2000
 #: the kernels of training's backward (no TPU counterpart)
 BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90", "wkv6_bwd")
@@ -2052,13 +2082,18 @@ def compare_sets(orc, label: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{label}: rows differ: {exc}") from None
 
 
-def sql_pass(torch, ops, sql, scope, texts: dict, device=None):
+def sql_pass(torch, ops, sql, scope, texts: dict, device=None, streams=None):
     """Each text through ``sql.execute`` once (host clock ending in a
     synchronisation, the result read back included, as in
-    ``run_queries``), with each query's K1 and K2 launches."""
+    ``run_queries``), with each query's K1 and K2 launches.  With a dict
+    ``streams``, each query's chunk-streamed pipelines and fallbacks
+    (``pipeline.STATS``) go there."""
+    from repro_torch.core import pipeline
+
     results, ms, k1, k2 = {}, {}, {}, {}
     for q, text in texts.items():
         before = dict(ops.LAUNCHES)
+        piped = (pipeline.STATS["pipelines"], pipeline.STATS["fallbacks"])
         t = time.perf_counter()
         res = sql.execute(text, scope, device=device).to_dict()
         torch.cuda.synchronize()
@@ -2066,6 +2101,9 @@ def sql_pass(torch, ops, sql, scope, texts: dict, device=None):
         results[q] = res
         k1[q] = ops.LAUNCHES["segment_sum"] - before["segment_sum"]
         k2[q] = ops.LAUNCHES["substr_find"] - before["substr_find"]
+        if streams is not None:
+            streams[q] = (pipeline.STATS["pipelines"] - piped[0],
+                          pipeline.STATS["fallbacks"] - piped[1])
     return results, ms, k1, k2
 
 
@@ -2143,11 +2181,19 @@ def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: di
     t_store = sum(t_tables.values())
     pushing = [q for q in names
                if any(s.predicates for s in walk_scans(sql.plan_query(texts[q], stores)))]
+    # under the default out_of_core = "auto" the aggregates over lineitem
+    # and orders (at least ooc_min_rows rows) stream chunk by chunk
+    streams = {}
     t = time.perf_counter()
-    res_s, ms_s, _, _ = sql_pass(torch, ops, sql, stores, texts, device=dev)
+    res_s, ms_s, _, _ = sql_pass(torch, ops, sql, stores, texts, device=dev, streams=streams)
     t_pass = time.perf_counter() - t
     for q in names:
         compare_sets(orc, f"store SQL {q} against in-memory SQL", res_s[q], res2[q])
+    streamed = [q for q in names if streams[q][0]]
+    log(f"  store pass under out_of_core={CONFIG.out_of_core!r} (ooc_min_rows "
+        f"{CONFIG.ooc_min_rows}): {len(streamed)} texts streamed ({', '.join(streamed)}); "
+        f"pipelines and fallbacks by text: "
+        f"{json.dumps({q: list(v) for q, v in streams.items() if any(v)})}")
     q6 = sql.plan_query(texts["q6"], stores)
     (scan,) = [s for s in walk_scans(q6) if s.predicates]
     preds = [_scan_pred(c, scan.alias) for c in scan.predicates]
@@ -2171,10 +2217,12 @@ def sql_phase(torch, ops, sfk, frames, tables, sf: float, dev, frame_results: di
     log(f"  q6's pushed scan of {scan.table}: {scanned.chunks_skipped} of {scanned.chunks_total} "
         f"chunks skipped, {scanned.nrows} rows kept, scan {1e3 * t_scan:.3f} ms; q6 through it "
         f"equals the store pass's q6")
-    del stores, cache
+    del cache
     log(f"  phase 3d wall {time.perf_counter() - t_phase:.3f} s")
     CONFIG.compiled = "auto"
-    return dict(launches=launched, by_path=by_path, by_form=by_form, results=res2, ms=ms2)
+    # the stores go on to phases 10 and 11
+    return dict(launches=launched, by_path=by_path, by_form=by_form, results=res2, ms=ms2,
+                stores=stores, store_pass_s=t_pass, streamed=streamed)
 
 
 # ----------------------------------------------------------------------
@@ -2595,6 +2643,350 @@ def tpcds_phase(torch, ops, seg, dev, seed: int) -> list:
     return k1_rows
 
 
+# ----------------------------------------------------------------------
+# phase 10: out of core
+# ----------------------------------------------------------------------
+#: the texts phase 10 requires to stream (the capped runner's queries)
+OOC_MUST_STREAM = ("q1", "q6", "q14")
+#: the texts whose every K1 call phase 10 records and holds to its plain
+#: version (q1 groups, q14 is keyless)
+OOC_K1_QUERIES = ("q1", "q14")
+#: the spill budget of phase 10's second forced pass: below one partial
+#: block of any grouped text, so every partial spills and is read back
+SPILL_BUDGET = 1 << 10
+#: the pipeline counters phase 10 prints
+OOC_COUNTERS = ("pipelines", "chunks_streamed", "chunks_pruned", "rows_streamed",
+                "partial_merges", "generic_probes", "fallbacks")
+
+
+def forced_pass(torch, ops, seg, sql, stores, texts: dict, dev, calls=None):
+    """Each text over the stores (``out_of_core`` as set by the caller),
+    with its pipelines and fallbacks; with ``calls``, every K1 call of the
+    texts in OOC_K1_QUERIES keeps a copy of its inputs there, under the
+    text's name, or under "<text> merge" inside ``StreamAgg``'s merges."""
+    from repro_torch.core import pipeline
+
+    streams, results, ms = {}, {}, {}
+    current = [None]
+    real_merge = pipeline.StreamAgg._merge_blocks
+
+    def merge_blocks(self, blocks):
+        saved = current[0]
+        current[0] = f"{saved} merge"
+        try:
+            return real_merge(self, blocks)
+        finally:
+            current[0] = saved
+
+    for q, text in texts.items():
+        rec = calls is not None and q in OOC_K1_QUERIES
+        if rec:
+            current[0] = q
+            real = record_segment_sums(ops, seg, calls, current)
+            pipeline.StreamAgg._merge_blocks = merge_blocks
+        try:
+            r, m, _, _ = sql_pass(torch, ops, sql, stores, {q: text}, device=dev,
+                                  streams=streams)
+        finally:
+            if rec:
+                ops.segment_sum_cuda = real
+                pipeline.StreamAgg._merge_blocks = real_merge
+        results.update(r)
+        ms.update(m)
+    return results, ms, streams
+
+
+def ooc_phase(torch, ops, seg, stores, sql_run: dict, sf: float, dev) -> dict:
+    """Phase 10: the 22 TPC-H texts over phase 3d's stores under
+    ``out_of_core = "force"``, each equal to 3d's in-memory result; every
+    K1 call of the streamed q1 and q14 held to its plain version; the pass
+    again under a spill budget; a profiled forced q1; then the capped
+    runner's sweep in child processes.  Returns the phase's summary and
+    K1's rows at the streamed shapes."""
+    import os
+    import shutil
+
+    from repro_torch import sql
+    from repro_torch.core import oracle as orc
+    from repro_torch.core import pipeline
+    from repro_torch.core.config import CONFIG
+    from repro_torch.launch import run_capped
+    from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
+
+    log("phase 10: out of core: the 22 TPC-H texts over phase 3d's stores under "
+        "out_of_core='force', chunk by chunk")
+    t_phase = time.perf_counter()
+    names = sorted(TPCH_SQL, key=lambda s: int(s[1:]))
+    texts = {q: sql_text(q, sf) for q in names}
+    want = sql_run["results"]
+    CONFIG.out_of_core = "force"
+    ops.reset_launches()
+    pipeline.reset_stats()
+    calls: dict = {}
+    t = time.perf_counter()
+    results, ms, streams = forced_pass(torch, ops, seg, sql, stores, texts, dev, calls)
+    t_pass = time.perf_counter() - t
+    launched = {name: ops.LAUNCHES[name] for name in ("segment_sum", "substr_find")}
+    by_path = dict(ops.PATH_LAUNCHES)
+    counters = {k: pipeline.STATS[k] for k in OOC_COUNTERS}
+    for q in names:
+        compare_sets(orc, f"forced {q} against 3d's in-memory SQL", results[q], want[q])
+    streamed = [q for q in names if streams[q][0]]
+    log(f"  forced pass {t_pass:.3f} s against 3d's store pass (auto) "
+        f"{sql_run['store_pass_s']:.3f} s; each text equals 3d's in-memory result (sorted "
+        f"rows, floats rtol {QUERY_RTOL})")
+    log(f"  {len(streamed)} texts streamed ({', '.join(streamed)}); pipelines and fallbacks "
+        f"by text: {json.dumps({q: list(v) for q, v in streams.items() if any(v)})}")
+    log(f"  pipeline.STATS: {json.dumps(counters)}")
+    slowest = sorted(ms, key=ms.get, reverse=True)[:4]
+    log(f"  slowest forced texts: {', '.join(f'{q} {ms[q]:.1f} ms' for q in slowest)}")
+    missing = [q for q in OOC_MUST_STREAM if not streams[q][0]]
+    if missing:
+        raise AssertionError(f"texts that did not stream under force: {missing}")
+    q15_rows = len(next(iter(results["q15"].values())))
+    if q15_rows < 1:
+        raise AssertionError("forced q15 returned no row")
+
+    # K1 on the streamed path: every call of q1 and q14 against its plain
+    # version; the largest chunk call and the largest merge call timed
+    log(f"  launches of the forced pass: {json.dumps(launched)}, segment_sum by path "
+        f"{json.dumps(by_path)}; K1 calls recorded: "
+        f"{json.dumps({k: len(v) for k, v in calls.items()})}")
+    held = 0
+    for key, cs in calls.items():
+        for v, g, m in cs:
+            check_segment_sum(torch, seg, v, g, m, key, quiet=True)
+            held += 1
+    rows = []
+    for kind in ("chunk", "merge"):
+        kcs = [(k, c) for k, cs in calls.items() if k.endswith(" merge") == (kind == "merge")
+               for c in cs]
+        if not kcs:
+            raise AssertionError(f"no K1 call recorded in a streamed {kind}")
+        key, (v, g, m) = max(kcs, key=lambda kc: kc[1][0].numel())
+        rows.append(segment_row(torch, seg, dev, f"forced {key}: the largest streamed {kind} "
+                                f"call ({v.dtype})", v, g, m))
+    log(f"  all {held} K1 calls of the forced q1 and q14 equal their plain versions")
+    del calls
+
+    # the pass again under a spill budget: every partial block spills
+    CONFIG.memory_budget_bytes = SPILL_BUDGET
+    pipeline.reset_stats()
+    t = time.perf_counter()
+    spilled, _, _ = forced_pass(torch, ops, seg, sql, stores,
+                                {q: texts[q] for q in streamed}, dev)
+    t_spill = time.perf_counter() - t
+    CONFIG.memory_budget_bytes = None
+    pipeline.sync_spill_stats()
+    spill = {k: pipeline.STATS[k] for k in ("bytes_spilled", "bytes_reread", "evictions",
+                                            "peak_tracked_bytes")}
+    for q in streamed:
+        compare_sets(orc, f"spilled {q} against the forced pass", spilled[q], results[q])
+    log(f"  spilling pass (memory_budget_bytes={SPILL_BUDGET}) over the {len(streamed)} "
+        f"streamed texts: {t_spill:.3f} s, {json.dumps(spill)}; results unchanged")
+    if spill["bytes_spilled"] <= 0 or spill["bytes_reread"] <= 0:
+        raise AssertionError(f"the spilling pass spilled or re-read nothing: {spill}")
+
+    # the device's idle share of one forced q1
+    wall, busy, per_op, _ = session(
+        torch, lambda: sql.execute(texts["q1"], stores, device=dev).to_dict())
+    idle = 100 - 100 * busy / wall
+    log(f"  profiled forced q1: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+        f"{idle:.3f} %)")
+    for key, (op_ms, count) in sorted(per_op.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"    {op_ms:.3f} ms  {count} x {key[:100]}")
+    CONFIG.out_of_core = "auto"
+
+    # the capped runner: stores written to disk, then four child processes
+    if STORE_CHUNK_ROWS != run_capped.CHUNK_ROWS:
+        raise AssertionError("phase 3d's chunks are not the capped runner's")
+    workdir = ROOT / "build" / "run_capped"
+    shutil.rmtree(workdir, ignore_errors=True)
+    t = time.perf_counter()
+    run_capped.prepare_stores(stores, str(workdir), sf, dev)
+    t_prep = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.run_capped", "sweep", "--prepared",
+         "--workdir", str(workdir), "--device", "cuda"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), capture_output=True, text=True,
+        timeout=CAPPED_TIMEOUT_S)
+    t_sweep = time.perf_counter() - t
+    shutil.rmtree(workdir, ignore_errors=True)
+    for line in proc.stdout.splitlines():
+        log(f"  run_capped: {line[:2000]}")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"run_capped sweep exited {proc.returncode}")
+    (line,) = [ln for ln in proc.stdout.splitlines() if ln.startswith('{"sweep"')]
+    sweep = json.loads(line)["sweep"]
+    gb = {k: sweep[k] / 1e9 for k in sweep if k.endswith(("_reserved", "_allocated"))}
+    log(f"  capped sweep (q1, q6, q14 at SF {sf}): cap {sweep['cap_mb']} MiB; uncapped peaks "
+        f"eager {gb['eager_max_memory_reserved']:.3f} GB reserved "
+        f"({gb['eager_max_memory_allocated']:.3f} allocated), ooc "
+        f"{gb['ooc_max_memory_reserved']:.3f} GB reserved; eager under the cap: "
+        f"{sweep['eager_oom']}; ooc under the cap {sweep['ooc_seconds']:.3f} s, matched; "
+        f"stores written in {t_prep:.3f} s, sweep {t_sweep:.3f} s")
+    log(f"  phase 10 wall {time.perf_counter() - t_phase:.3f} s")
+    summary = dict(forced_pass_s=t_pass, store_pass_auto_s=sql_run["store_pass_s"],
+                   streamed=streamed, streamed_auto=sql_run["streamed"], counters=counters,
+                   launches=launched, segment_sum_by_path=by_path, k1_calls_held=held,
+                   spill_pass_s=t_spill, spill=spill, forced_q1_idle_pct=idle,
+                   capped=dict(sweep, prepare_s=t_prep, sweep_s=t_sweep))
+    return summary, rows
+
+
+# ----------------------------------------------------------------------
+# phase 11: SQL serving
+# ----------------------------------------------------------------------
+#: client threads of phase 11, each submitting the 22 texts
+SERVE_CLIENTS = 8
+#: q6's l_quantity literal, eight values through one Prepared statement
+PREPARED_QTYS = (24, 25, 23, 30, 12, 40, 18, 33)
+
+
+def serve_phase(torch, ops, frames, stores, sql_run: dict, sf: float, dev, seed: int) -> dict:
+    """Phase 11: an ``Executor`` over the TPC-H scope on the card (lineitem
+    and orders as stores, the rest as frames): 8 client threads each
+    submit the 22 texts in a shuffled order and only wait on their
+    futures (the admission worker is the one thread on the card); each
+    result equals 3d's; then a Prepared q6, a session UDF, a timeout, a
+    cancel and the in-flight cap."""
+    import random
+    import threading
+
+    from repro_torch import serve, sql
+    from repro_torch.core import oracle as orc
+    from repro_torch.core.config import CONFIG
+    from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
+    from repro_torch.resilience import QueryCancelled, QueryTimeout, ResourceExhausted
+    from repro_torch.sql import compile as plan_compile
+
+    log(f"phase 11: SQL serving: {SERVE_CLIENTS} client threads x 22 TPC-H texts through one "
+        f"Executor (lineitem and orders as stores, the rest as frames)")
+    t_phase = time.perf_counter()
+    names = sorted(TPCH_SQL, key=lambda s: int(s[1:]))
+    texts = {q: sql_text(q, sf) for q in names}
+    want = sql_run["results"]
+    scope = {name: f for name, f in frames.items() if name not in ("lineitem", "orders")}
+    scope.update(lineitem=stores["lineitem"], orders=stores["orders"])
+    ops.reset_launches()
+    serve.STATS.reset()
+    plan_compile.clear_cache()
+    plan_compile.reset_stats()
+    rng = random.Random(seed)
+    order = [rng.sample(names, len(names)) for _ in range(SERVE_CLIENTS)]
+    futures: list = [None] * SERVE_CLIENTS
+
+    with serve.Executor(scope, device=dev) as ex:
+        sessions = [ex.session() for _ in range(SERVE_CLIENTS)]
+
+        def client(i):
+            # enqueue and wait only: no CUDA call runs on a client thread
+            futs = [(q, sessions[i].submit(texts[q])) for q in order[i]]
+            for _, fut in futs:
+                fut.exception()
+            futures[i] = futs
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVE_CLIENTS)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t
+        snap = serve.STATS.snapshot()
+        n_req = sum(len(f) for f in futures)
+        for i, futs in enumerate(futures):
+            for q, fut in futs:
+                compare_sets(orc, f"served {q} (client {i}) against 3d", fut.result().to_dict(),
+                             want[q])
+        # q21 under a 1 ms deadline
+        try:
+            ex.execute(texts["q21"], timeout_s=1e-3)
+            raise AssertionError("q21 under a 1 ms deadline did not time out")
+        except QueryTimeout as exc:
+            timed_out = str(exc)
+    counts = {k: snap[k] for k in ("admitted", "batches", "batched_queries", "coalesced",
+                                   "shared_scan_groups", "shared_scan_queries",
+                                   "shared_scan_errors", "plan_cache_hits", "errors_total")}
+    qps = n_req / wall
+    log(f"  {n_req} requests in {wall:.3f} s ({qps:.3f} queries/s); latency p50 "
+        f"{snap['p50_ms']:.3f} ms, p99 {snap['p99_ms']:.3f} ms; each result equals 3d's")
+    log(f"  serve.STATS: {json.dumps(counts)}; phases (ms): "
+        f"{json.dumps({p: {k: round(v, 3) for k, v in d.items()} for p, d in snap['phases'].items()})}")
+    bad = [k for k in ("batches", "coalesced", "shared_scan_groups") if counts[k] <= 0]
+    if bad or counts["shared_scan_errors"] or counts["errors_total"]:
+        raise AssertionError(f"serving counters: {counts}")
+    log(f"  q21 with timeout_s=0.001: QueryTimeout ({timed_out})")
+
+    # a Prepared q6 over frames: one capture, then hits
+    template = texts["q6"].replace("l_quantity < 24", "l_quantity < {qty}")
+    plan_compile.clear_cache()
+    plan_compile.reset_stats()
+    with serve.Executor(frames, device=dev) as ex2:
+        ps = ex2.prepare(template)
+        outs = [ps.execute(qty=qty) for qty in PREPARED_QTYS]
+        stats = dict(plan_compile.STATS)
+        ex2.add_function("disc_price", lambda p, d: p * (1 - d))
+        udf = ex2.execute("SELECT SUM(disc_price(l_extendedprice, l_discount)) AS r "
+                          "FROM lineitem WHERE l_shipdate >= DATE '1995-01-01'")
+        inline = ex2.execute("SELECT SUM(l_extendedprice * (1 - l_discount)) AS r "
+                             "FROM lineitem WHERE l_shipdate >= DATE '1995-01-01'")
+    if (stats["compiles"], stats["hits"]) != (1, len(PREPARED_QTYS) - 1):
+        raise AssertionError(f"Prepared q6: compiles {stats['compiles']}, hits {stats['hits']}")
+    CONFIG.compiled = "off"
+    for qty, out in zip(PREPARED_QTYS, outs):
+        compare_results(f"Prepared q6 qty {qty}", out.to_dict(),
+                        sql.execute(template.format(qty=qty), frames).to_dict())
+    CONFIG.compiled = "auto"
+    compare_results("session UDF against its inline expression", udf.to_dict(), inline.to_dict())
+    log(f"  Prepared q6 over frames, {len(PREPARED_QTYS)} literals: 1 capture, "
+        f"{stats['hits']} hits, each equal to op by op; the session UDF equals its inline "
+        f"expression")
+
+    # a request cancelled while queued; the in-flight cap of a session
+    ex3 = serve.Executor(frames, auto_start=False, device=dev)
+    fut = ex3.submit(texts["q6"])
+    ex3.cancel(fut.request_id)
+    ex3.drain_once()
+    try:
+        fut.result()
+        raise AssertionError("a request cancelled while queued returned a result")
+    except QueryCancelled:
+        pass
+    CONFIG.serve_session_inflight = 2
+    try:
+        s = ex3.session()
+        held = [s.submit(texts["q6"]) for _ in range(2)]
+        try:
+            s.submit(texts["q6"])
+            raise AssertionError("a session over serve_session_inflight was admitted")
+        except ResourceExhausted:
+            pass
+    finally:
+        CONFIG.serve_session_inflight = None
+    ex3.drain_once()
+    for f in held:
+        compare_sets(orc, "q6 under the in-flight cap", f.result().to_dict(), want["q6"])
+    ex3.close()
+    log("  cancelled while queued: QueryCancelled; a third request of a session capped at "
+        "2 in flight: ResourceExhausted")
+    launched = {name: ops.LAUNCHES[name] for name in ("segment_sum", "substr_find")}
+    log(f"  launches during the phase: {json.dumps(launched)}, segment_sum by path "
+        f"{json.dumps(dict(ops.PATH_LAUNCHES))}")
+    silent = [name for name, n in launched.items() if n == 0]
+    if silent:
+        raise AssertionError(f"serving launched no {silent}")
+    plan_compile.clear_cache()
+    torch.cuda.empty_cache()
+    log(f"  phase 11 wall {time.perf_counter() - t_phase:.3f} s")
+    return dict(requests=n_req, wall_s=wall, qps=qps, p50_ms=snap["p50_ms"],
+                p99_ms=snap["p99_ms"], counters=counts, launches=launched,
+                prepared=dict(compiles=stats["compiles"], hits=stats["hits"]))
+
+
 def compare_results(q: str, got: dict, want: dict) -> None:
     if set(got) != set(want):
         raise AssertionError(f"{q}: columns {sorted(got)} != {sorted(want)}")
@@ -2706,6 +3098,11 @@ def main() -> int:
     sql_run = sql_phase(torch, ops, sf, frames, tables, args.sf, dev, res2)
     # phase 3e: the same texts compiled, one CUDA graph per plan
     compiled_run = compiled_phase(torch, ops, frames, args.sf, sql_run, res2)
+    # phases 10 and 11: out of core and SQL serving over 3d's stores
+    ooc_run, ooc_rows = ooc_phase(torch, ops, seg, sql_run["stores"], sql_run, args.sf, dev)
+    shapes["segment_sum"] += ooc_rows
+    serve_run = serve_phase(torch, ops, frames, sql_run.pop("stores"), sql_run, args.sf, dev,
+                            args.seed)
     del frames, tables, res1, res2
     torch.cuda.empty_cache()
 
@@ -2806,6 +3203,11 @@ def main() -> int:
             **({"deterministic": True,
                 "library_deterministic_ms": row["library_deterministic_ms"]}
                if name == "segment_sum" else {}),
+            # K1's and K2's launches on the out-of-core pass (phase 10) and
+            # in serving (phase 11), apart from the main path's
+            **({"launches_out_of_core": ooc_run["launches"][name],
+                "launches_serving": serve_run["launches"][name]}
+               if name in ooc_run["launches"] else {}),
             # K1's q1 shapes, its mid path and TPC-DS's largest call on
             # each path, K4's later families' shapes,
             # K5's prefill shape (0 launches on the serving path)
@@ -2818,6 +3220,8 @@ def main() -> int:
     # the SQL pass's launches (phase 3d, two passes of the 22 texts), apart
     # from each kernel's main-path launches in the kernels line
     log(json.dumps({"compiled_sql": compiled_run}))
+    log(json.dumps({"out_of_core": ooc_run}))
+    log(json.dumps({"sql_serving": serve_run}))
     log(json.dumps({"sql_launches": sql_run["launches"],
                     "segment_sum_by_path_pass1": sql_run["by_path"],
                     "substr_find_by_form_pass1": sql_run["by_form"]}))

@@ -85,6 +85,11 @@ def wants_grad(*tensors) -> bool:
     return False
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, to load or to launch: a fault of the
+    card or of the port, which no caller may degrade into another route."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -92,7 +97,7 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    raise KernelError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _lib_path(name: str) -> Path:
@@ -128,7 +133,7 @@ def build_all() -> List[Path]:
                 continue
             os.replace(tmp, out)
         if failed:
-            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+            raise KernelError("kernel build failed:\n" + "\n".join(failed))
         return [_lib_path(name) for name in SIGNATURES]
 
 
@@ -140,7 +145,11 @@ def kernel(name: str):
         if not path.exists():
             build_all()
         symbol, argtypes = SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(path)), symbol)
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as exc:
+            raise KernelError(f"cannot load kernel {name} from {path}: {exc}") from exc
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -149,4 +158,4 @@ def kernel(name: str):
 
 def check(name: str, err: int) -> None:
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: cudaError {err}")

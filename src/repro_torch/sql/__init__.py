@@ -105,7 +105,9 @@ def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
     the compiled whole-plan path (``compile``: one captured CUDA graph
     per plan on the card), which declines store-backed scans, session
     UDFs, small inputs (``auto``) and plans it cannot trace; the rest
-    run op by op.  ``scan_cache`` maps ``lower.scan_cache_key`` ->
+    run op by op (under ``CONFIG.out_of_core = "force"`` every plan
+    does, so its store aggregates stream chunk by chunk).
+    ``scan_cache`` maps ``lower.scan_cache_key`` ->
     pre-materialized TensorFrame of a store-backed Scan (a shared scan
     made once for several plans); the compiled path is skipped when a
     cache is supplied (it performs its own scans).  ``device`` places
@@ -113,8 +115,13 @@ def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
     """
     from ..core.config import CONFIG
 
-    # the out-of-core knob (chunk streaming) joins this test when it is ported
-    if CONFIG.compiled != "off" and not scan_cache:
+    # out_of_core=force must reach the chunk-streaming lowering: the
+    # compiled path materializes whole scans inside its captured graph
+    if (
+        CONFIG.compiled != "off"
+        and CONFIG.out_of_core != "force"
+        and not scan_cache
+    ):
         from . import compile as _compile
 
         out = _compile.maybe_execute_compiled(plan, frames)

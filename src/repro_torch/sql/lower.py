@@ -389,7 +389,17 @@ def _lower_node(
         if key in _memo:
             first, f = _memo[key]
             return f.rename(dict(zip(_output_names(first), _output_names(node))))
-        f = _lower_aggregate(node, lower_plan(node.child, frames, _memo, scan_cache, device))
+        f = None
+        if scan_cache is None:
+            # out-of-core: group-by-aggregates over store-backed scan
+            # chains can run chunk-streamed instead of materializing
+            # the whole scan (repro_torch.sql.stream decides; returns
+            # None when the plan shape or CONFIG gates it off)
+            from . import stream as _stream
+
+            f = _stream.try_stream_aggregate(node, frames, _memo, device)
+        if f is None:
+            f = _lower_aggregate(node, lower_plan(node.child, frames, _memo, scan_cache, device))
         _memo[key] = (node, f)
         return f
     if isinstance(node, Project):

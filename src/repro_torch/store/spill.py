@@ -1,7 +1,6 @@
 """Spill-to-disk for host-side intermediates under a memory budget.
 
-The out-of-core layer (``core.pipeline`` in the JAX package, not yet
-ported) holds intermediate
+The out-of-core layer (``repro_torch.core.pipeline``) holds intermediate
 results — per-chunk partial aggregates, buffered probe outputs — as
 host array blocks.  ``SpillManager`` tracks their bytes against
 ``CONFIG.memory_budget_bytes`` and, when the pool overflows, evicts the

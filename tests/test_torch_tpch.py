@@ -155,9 +155,21 @@ def _forbidden(module: str) -> bool:
     return module.split(".")[0] in ("jax", "jaxlib", "repro")
 
 
+#: modules the scans below must reach by name (out of core, SQL serving
+#: and the capped runner among them)
+NAMED_MODULES = (
+    "queries/tpch_frames.py", "queries/tpch_sql.py", "sql/lower.py",
+    "sql/analyze.py", "sql/udf.py", "sql/compile.py", "serve/engine.py",
+    "core/pipeline.py", "sql/stream.py", "serve/sql.py",
+    "serve/admission.py", "serve/stats.py", "launch/run_capped.py",
+)
+
+
 def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    for rel in NAMED_MODULES:
+        assert PORT / rel in files, rel
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -170,6 +182,7 @@ def test_port_and_chip_smoke_import_no_jax_and_nothing_of_repro():
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
+    names = ["repro_torch." + rel[:-3].replace("/", ".") for rel in NAMED_MODULES]
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -177,9 +190,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not loaded, loaded\n"
-        "for name in ('repro_torch.queries.tpch_frames', 'repro_torch.queries.tpch_sql',\n"
-        "             'repro_torch.sql.lower', 'repro_torch.sql.analyze', 'repro_torch.sql.udf',\n"
-        "             'repro_torch.sql.compile', 'repro_torch.serve.engine'):\n"
+        f"for name in {names!r}:\n"
         "    assert name in sys.modules, name\n"
         "print('clean')\n"
     )
