@@ -100,6 +100,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    deadline (``QueryTimeout``), a request cancelled while queued
    (``QueryCancelled``) and a session over its in-flight cap
    (``ResourceExhausted``); K1 and K2 must launch;
+12. the distributed layer (``repro_torch.dist``) on the same frames and
+   stores: (a) in a one-rank NCCL group (``dframe.init_local``; its CUDA
+   backend must be NCCL) the 22 frame queries twice, the 22 SQL texts
+   op by op and a forced out-of-core q1 under ``CONFIG.distributed =
+   "force"``, each equal to its local result (ints, codes and order
+   exactly, floats within rtol 1e-12; whether every bit held is
+   printed), K1's launches in a routed pass equal to a local pass's,
+   one ``all_reduce`` a routed group sum and every semi/anti probe
+   through the gathered mask; the local passes under ``auto`` with the
+   group up call no collective; lineitem's (l_orderkey,
+   l_extendedprice) repartitioned from 3d's store chunks (dropped 0,
+   every row present, per-key sums equal to the local group-by); (b) a
+   simulated world of 4: each op's shard-local function for ranks 0 to
+   3 on the card, combined in rank order, the group sums within rtol
+   1e-12 of the local ones, the semi mask and the repartition slots
+   exactly the CPU's; (c) ``quantize`` of a 5120 x 17408 float32 tensor,
+   codes and scales equal to the CPU's, ``compressed_mean`` over the
+   group, a one-stage ``pipeline_forward`` equal to the sequential loop,
+   and a reduced config's weights placed by their partition specs on a
+   (1, 1) device mesh, checkpointed and restored with ``shardings=``,
+   bit-equal; routed against local times beside the card's name and
+   power limit;
 4. the card against the CPU plain path on all 22 queries and the 22 SQL
    texts at SF 0.01 (60,000 lineitem rows: the texts take the compiled
    route under ``auto`` on both devices): ints, codes and row order
@@ -153,9 +175,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
 5. one JSON line of the compiled pass (phase 3e), one of phase 10, one
-   of phase 11, one of the SQL pass's launches (phase 3d), one JSON line
-   describing every kernel (its launches those of its main path; K1's
-   and K2's launches in phases 10 and 11 beside them), the
+   of phase 11, one of phase 12, one of the SQL pass's launches (phase
+   3d), one JSON line describing every kernel (its launches those of its
+   main path; K1's and K2's launches in phases 10 and 11, and K1's in
+   phase 12, beside them), the
    card's name and power limit, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2696,13 +2719,13 @@ def forced_pass(torch, ops, seg, sql, stores, texts: dict, dev, calls=None):
     return results, ms, streams
 
 
-def ooc_phase(torch, ops, seg, stores, sql_run: dict, sf: float, dev) -> dict:
+def ooc_phase(torch, ops, seg, stores, sql_run: dict, sf: float, dev):
     """Phase 10: the 22 TPC-H texts over phase 3d's stores under
     ``out_of_core = "force"``, each equal to 3d's in-memory result; every
     K1 call of the streamed q1 and q14 held to its plain version; the pass
     again under a spill budget; a profiled forced q1; then the capped
-    runner's sweep in child processes.  Returns the phase's summary and
-    K1's rows at the streamed shapes."""
+    runner's sweep in child processes.  Returns the phase's summary,
+    K1's rows at the streamed shapes and the forced q1's result."""
     import os
     import shutil
 
@@ -2834,7 +2857,7 @@ def ooc_phase(torch, ops, seg, stores, sql_run: dict, sf: float, dev) -> dict:
                    launches=launched, segment_sum_by_path=by_path, k1_calls_held=held,
                    spill_pass_s=t_spill, spill=spill, forced_q1_idle_pct=idle,
                    capped=dict(sweep, prepare_s=t_prep, sweep_s=t_sweep))
-    return summary, rows
+    return summary, rows, results["q1"]
 
 
 # ----------------------------------------------------------------------
@@ -2987,18 +3010,345 @@ def serve_phase(torch, ops, frames, stores, sql_run: dict, sf: float, dev, seed:
                 prepared=dict(compiles=stats["compiles"], hits=stats["hits"]))
 
 
-def compare_results(q: str, got: dict, want: dict) -> None:
+# ----------------------------------------------------------------------
+# phase 12: the distributed layer on one card
+# ----------------------------------------------------------------------
+#: routed results against local ones: K1's sums are exact per segment and
+#: a one-rank all_reduce adds nothing, so equality is expected; floats are
+#: held to DIST_RTOL (and whether every bit held is printed)
+DIST_RTOL = 1e-12
+#: the simulated world of phase 12b
+SIM_WORLD = 4
+#: phase 12c's quantized tensor: a Qwen3-14B MLP weight's shape (D, F)
+QUANT_SHAPE = (5120, 17408)
+
+
+def exchange(sends) -> "np.ndarray":
+    """What the all-to-all makes of each rank's ``(world, bucket)`` send
+    buffer, gathered in rank order: rank ``d`` receives row ``d`` of every
+    source in source order."""
+    world = len(sends)
+    return np.concatenate([np.concatenate([np.asarray(s[d]) for s in sends])
+                           for d in range(world)])
+
+
+def dist_phase(torch, ops, QF, frames, stores, sql_run: dict, ooc_q1: dict,
+               local_results: dict, sf: float, dev) -> dict:
+    """Phase 12: the distributed layer (``repro_torch.dist``) on the card.
+    (a) a one-rank NCCL group: the 22 frame queries, the 22 SQL texts op
+    by op and a forced out-of-core q1 routed (``CONFIG.distributed =
+    "force"``), each equal to its local result, K1's launches equal to a
+    local pass's, collectives counted; the local passes run under
+    ``auto`` with the group up and call no collective; the repartition of
+    lineitem from its store chunks, lossless.  (b) a simulated world of
+    four: each op's shard-local function for ranks 0 to 3 on the card,
+    combined in rank order, equal to the local result (sums) and to the
+    same on the CPU (mask, slots).  (c) quantize on the card against the
+    CPU, compressed_mean over the group, a one-stage pipeline, and a
+    checkpoint restored onto a (1, 1) device mesh by its partition specs."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import sql
+    from repro_torch.configs import get
+    from repro_torch.core.config import CONFIG
+    from repro_torch.core.join import membership
+    from repro_torch.dist import compression, dframe, pipeline as dpipe
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, partition
+    from repro_torch.models.config import reduced
+    from repro_torch.queries.tpch_sql import TPCH_SQL, sql_text
+    from repro_torch.train import checkpoint
+
+    log(f"phase 12: distributed, a one-rank NCCL group and a simulated world of {SIM_WORLD} "
+        f"(on {gpu_name_power()})")
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = dframe.init_local(dev)
+    backend = dist.get_backend()
+    log(f"  group: world {mesh.size}, backend {backend!r}")
+    if dev.type == "cuda" and "nccl" not in backend:
+        raise AssertionError(f"the group's CUDA backend is not NCCL: {backend!r}")
+    saved = CONFIG.distributed, CONFIG.compiled, CONFIG.out_of_core
+    k1_before = ops.LAUNCHES["segment_sum"]
+    out = {}
+    try:
+        # (a) the frame queries: local under auto (no collective), routed twice
+        names = sorted(QF.ALL, key=lambda s: int(s[1:]))
+        CONFIG.distributed = "auto"
+        dframe.reset_counts()
+        before = ops.LAUNCHES["segment_sum"]
+        local, ms_local = run_queries(torch, QF, frames, sf)
+        k1_local = ops.LAUNCHES["segment_sum"] - before
+        for q in names:
+            compare_results(f"auto {q}", local[q], local_results[q], DIST_RTOL)
+        if sum(dframe.COLLECTIVES.values()) or sum(dframe.ROUTED.values()):
+            raise AssertionError(f"auto with one rank called collectives: {dframe.COLLECTIVES}")
+        CONFIG.distributed = "force"
+        passes, bit_equal = [], True
+        for i in range(2):
+            dframe.reset_counts()
+            before = ops.LAUNCHES["segment_sum"]
+            routed, ms_routed = run_queries(torch, QF, frames, sf)
+            k1 = ops.LAUNCHES["segment_sum"] - before
+            counts, colls = dict(dframe.ROUTED), dict(dframe.COLLECTIVES)
+            passes.append(dict(ms=sum(ms_routed.values()), k1=k1, routed=counts,
+                               collectives=colls))
+            for q in names:
+                bit_equal &= compare_results(f"routed {q} (pass {i + 1})", routed[q],
+                                           local_results[q], DIST_RTOL)
+            if k1 != k1_local:
+                raise AssertionError(f"routed pass {i + 1} launched K1 {k1} times, a local "
+                                     f"pass {k1_local}")
+            if colls["all_reduce"] != counts["groupby_sum"] or counts["groupby_sum"] == 0:
+                raise AssertionError(f"all_reduce {colls} against routed group sums {counts}")
+            if counts["semi_join"] == 0 or colls["all_gather"] != counts["semi_join"]:
+                raise AssertionError(f"no semi or anti probe went through the mask: {counts}")
+            if len(next(iter(routed["q15"].values()))) == 0:
+                raise AssertionError("routed q15 returned no row")
+        # local again, after the routed passes: compare neighbours
+        CONFIG.distributed = "auto"
+        dframe.reset_counts()
+        _, ms_local2 = run_queries(torch, QF, frames, sf)
+        if sum(dframe.COLLECTIVES.values()):
+            raise AssertionError(f"auto with one rank called collectives: {dframe.COLLECTIVES}")
+        CONFIG.distributed = "force"
+        ms_local_total = sum(ms_local2.values())
+        log(f"  22 frame queries routed twice, each equal to phase 3's local result (ints, codes "
+            f"and order exact, floats rtol {DIST_RTOL}; every bit: {bit_equal}); K1 {k1_local} "
+            f"launches a pass, local and routed; routed ops {passes[1]['routed']}, collectives "
+            f"{passes[1]['collectives']}")
+        log(f"  passes in turn: local (auto) {sum(ms_local.values()):.3f} ms, routed "
+            f"{passes[0]['ms']:.3f} ms and {passes[1]['ms']:.3f} ms, local (auto) "
+            f"{ms_local_total:.3f} ms ({gpu_name_power()})")
+        out.update(frame_local_first_ms=sum(ms_local.values()),
+                   frame_local_ms=ms_local_total, frame_routed_ms=passes[1]["ms"],
+                   frame_routed_cold_ms=passes[0]["ms"], frame_bit_equal=bit_equal,
+                   k1_launches_a_pass=k1_local, routed_ops=passes[1]["routed"],
+                   collectives=passes[1]["collectives"])
+
+        # the SQL texts op by op: local under auto, then routed
+        CONFIG.compiled = "off"
+        texts = {q: sql_text(q, sf) for q in sorted(TPCH_SQL, key=lambda s: int(s[1:]))}
+        CONFIG.distributed = "auto"
+        dframe.reset_counts()
+        _, ms_sql_local, _, _ = sql_pass(torch, ops, sql, frames, texts, device=dev)
+        if sum(dframe.COLLECTIVES.values()):
+            raise AssertionError(f"auto SQL called collectives: {dframe.COLLECTIVES}")
+        CONFIG.distributed = "force"
+        dframe.reset_counts()
+        sql_routed, ms_sql_routed, _, _ = sql_pass(torch, ops, sql, frames, texts, device=dev)
+        sql_counts = dict(dframe.ROUTED)
+        CONFIG.distributed = "auto"
+        _, ms_sql_local2, _, _ = sql_pass(torch, ops, sql, frames, texts, device=dev)
+        CONFIG.distributed = "force"
+        sql_bits = True
+        for q in texts:
+            sql_bits &= compare_results(f"routed SQL {q}", sql_routed[q], sql_run["results"][q],
+                                      DIST_RTOL)
+        log(f"  22 SQL texts op by op routed, each equal to 3d's (every bit: {sql_bits}); "
+            f"in turn: local (auto) {sum(ms_sql_local.values()):.3f} ms, routed "
+            f"{sum(ms_sql_routed.values()):.3f} ms, local (auto) "
+            f"{sum(ms_sql_local2.values()):.3f} ms; routed ops {sql_counts}")
+        out.update(sql_local_ms=sum(ms_sql_local.values()),
+                   sql_local2_ms=sum(ms_sql_local2.values()),
+                   sql_routed_ms=sum(ms_sql_routed.values()), sql_bit_equal=sql_bits,
+                   sql_routed_ops=sql_counts)
+
+        # a forced out-of-core q1: each chunk's partial sums and merges routed
+        CONFIG.out_of_core = "force"
+        q1 = {"q1": sql_text("q1", sf)}
+        CONFIG.distributed = "auto"
+        dframe.reset_counts()
+        _, ms_ooc_local, _, _ = sql_pass(torch, ops, sql, stores, q1, device=dev)
+        if sum(dframe.COLLECTIVES.values()):
+            raise AssertionError(f"auto out of core called collectives: {dframe.COLLECTIVES}")
+        CONFIG.distributed = "force"
+        dframe.reset_counts()
+        ooc, ms_ooc, _, _ = sql_pass(torch, ops, sql, stores, q1, device=dev)
+        ooc_bits = compare_results("routed forced q1", ooc["q1"], ooc_q1, DIST_RTOL)
+        if dframe.ROUTED["groupby_sum"] == 0:
+            raise AssertionError("the forced q1's chunk partials were not routed")
+        log(f"  forced out-of-core q1 routed ({dframe.ROUTED['groupby_sum']} group sums), equal "
+            f"to phase 10's (every bit: {ooc_bits}); {ms_ooc['q1']:.3f} ms against local "
+            f"{ms_ooc_local['q1']:.3f} ms")
+        out.update(ooc_q1_routed_ms=ms_ooc["q1"], ooc_q1_local_ms=ms_ooc_local["q1"],
+                   ooc_q1_group_sums=dframe.ROUTED["groupby_sum"], ooc_bit_equal=ooc_bits)
+        CONFIG.out_of_core, CONFIG.compiled = saved[2], saved[1]
+
+        # the repartition of lineitem from its store chunks, over the group
+        li = stores["lineitem"]
+        kc = [li.column("l_orderkey").chunk_physical(i) for i in range(li.n_chunks)]
+        vc = [li.column("l_extendedprice").chunk_physical(i) for i in range(li.n_chunks)]
+        n = sum(len(c) for c in kc)
+        dframe.reset_counts()
+        sync()
+        t = time.perf_counter()
+        k2, v2, valid, dropped = dframe.dist_repartition_by_key(mesh, kc, vc, capacity=n,
+                                                                device=dev)
+        sync()
+        rep_ms = (time.perf_counter() - t) * 1e3
+        keys = torch.from_numpy(np.concatenate(kc)).to(dev)
+        vals = torch.from_numpy(np.concatenate(vc)).to(dev)
+        if int(dropped) != 0 or int(valid.sum()) != n:
+            raise AssertionError(f"repartition dropped {int(dropped)} rows, kept "
+                                 f"{int(valid.sum())} of {n}")
+        if not torch.equal(torch.sort(k2[valid]).values, torch.sort(keys).values):
+            raise AssertionError("repartition lost or changed a key")
+        domain = int(keys.max()) + 1
+        by_key = ops.segment_sum(v2[valid], k2[valid], domain)
+        if not torch.equal(by_key, ops.segment_sum(vals, keys, domain)):
+            raise AssertionError("per-key sums after the repartition differ from before it")
+        grouped = frames["lineitem"].groupby("l_orderkey").agg([("s", "sum", "l_extendedprice")])
+        gk = torch.as_tensor(np.asarray(grouped.column("l_orderkey")), device=dev)
+        if not np.allclose(by_key[gk].cpu().numpy(), np.asarray(grouped.column("s")),
+                           rtol=DIST_RTOL, atol=0.0):
+            raise AssertionError("per-key sums after the repartition differ from the group-by")
+        slots = int(k2.shape[0])
+        wire = 2 * slots * 8  # the all-to-all's key and value buffers (int64, float64)
+        log(f"  repartition of lineitem (l_orderkey, l_extendedprice) from {li.n_chunks} store "
+            f"chunks over the group ({backend}): {n} rows, {slots} slots, dropped 0, every row "
+            f"present, per-key sums equal to the local group-by; {rep_ms:.3f} ms, {wire} bytes "
+            f"through the all-to-all, collectives {dict(dframe.COLLECTIVES)} "
+            f"({gpu_name_power()})")
+        out.update(repartition_ms=rep_ms, repartition_rows=n, repartition_slots=slots,
+                   repartition_bytes=wire)
+
+        del k2, v2, valid, keys, vals
+
+        # (b) a simulated world of four on the card, against the local result
+        # and against the same combination on the CPU
+        lineitem = frames["lineitem"]
+        sk, keys = lineitem.col_values("l_suppkey"), lineitem.col_values("l_orderkey")
+        vals = lineitem.col_values("l_extendedprice")
+        domain_s = int(sk.max()) + 1
+        combined = sum(dframe.groupby_sum_shard(sk, vals, domain_s, r, SIM_WORLD).cpu()
+                       for r in range(SIM_WORLD))
+        whole = dframe.local_dense_sum(sk, vals, domain_s).cpu()
+        if not torch.allclose(combined, whole, rtol=DIST_RTOL, atol=0.0):
+            raise AssertionError("the simulated world's group sums differ from the local ones")
+        orders = frames["orders"]
+        ok, price = orders.col_values("o_orderkey"), orders.col_values("o_totalprice")
+        build = ok[price > price.median()]
+        mask = torch.cat([dframe.semi_join_shard(keys, build, r, SIM_WORLD)
+                          for r in range(SIM_WORLD)])[:n]
+        mask_cpu = torch.cat([dframe.semi_join_shard(keys.cpu(), build.cpu(), r, SIM_WORLD)
+                              for r in range(SIM_WORLD)])[:n]
+        if not (torch.equal(mask.cpu(), mask_cpu)
+                and torch.equal(mask, membership(keys, build))):
+            raise AssertionError("the simulated world's semi mask differs")
+        sends = [dframe.repartition_shard(keys, vals, n, r, SIM_WORLD) for r in range(SIM_WORLD)]
+        sends_cpu = [dframe.repartition_shard(keys.cpu(), vals.cpu(), n, r, SIM_WORLD)
+                     for r in range(SIM_WORLD)]
+        for part in (0, 1):
+            a = exchange([s[part].cpu() for s in sends])
+            b = exchange([s[part] for s in sends_cpu])
+            if not np.array_equal(a, b):
+                raise AssertionError(f"the simulated world's repartition slots differ ({part})")
+        if sum(int(s[2]) for s in sends) != 0:
+            raise AssertionError("the simulated world's repartition dropped rows")
+        # what routing adds to one group sum: the call against K1 alone,
+        # and a bare all_reduce of a q1-sized partial (6 float64 sums)
+        if dev.type == "cuda":
+            dframe.reset_counts()
+            sk, vals = sk.contiguous(), vals.contiguous()  # K1 takes contiguous tensors
+            out.update(
+                routed_sum_ms=cuda_ms(torch, lambda: dframe.dist_groupby_sum(
+                    mesh, sk, vals, domain_s), REPS),
+                local_sum_ms=cuda_ms(torch, lambda: ops.segment_sum(vals, sk, domain_s), REPS),
+                all_reduce_ms=cuda_ms(torch, lambda: dframe.all_reduce(
+                    torch.zeros(6, dtype=torch.float64, device=dev), mesh), REPS))
+            log(f"  one group sum over l_suppkey ({sk.numel()} rows): routed "
+                f"{out['routed_sum_ms']:.4f} ms against K1 alone {out['local_sum_ms']:.4f} ms; "
+                f"an all_reduce of 6 float64 {out['all_reduce_ms']:.4f} ms ({gpu_name_power()})")
+        log(f"  simulated world of {SIM_WORLD}: group sums over l_suppkey ({domain_s} groups) "
+            f"within rtol {DIST_RTOL} of the local ones, the semi mask of l_orderkey against "
+            f"{int(build.numel())} orders and the repartition slots exactly the CPU's")
+        del sends, sends_cpu, mask, mask_cpu
+
+        # (c) quantize on the card against the CPU
+        gen = torch.Generator("cpu").manual_seed(12)
+        x = torch.randn(QUANT_SHAPE, generator=gen).reshape(-1)
+        xd = x.to(dev)
+        q, s, r = compression.quantize(xd)
+        qc, sc, rc = compression.quantize(x)
+        if not (torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)):
+            raise AssertionError(
+                f"quantize differs between card and CPU: {int((s.cpu() != sc).sum())} of "
+                f"{sc.numel()} scales, {int((q.cpu() != qc).sum())} of {qc.numel()} codes")
+        resid_err = float((xd - compression.dequantize(q, s, x.numel()) - r).abs().max())
+        if resid_err > 1e-6:
+            raise AssertionError(f"quantize's residual identity off by {resid_err}")
+        q_ms = cuda_ms(torch, lambda: compression.quantize(xd), 5) if dev.type == "cuda" else 0.0
+        dframe.reset_counts()
+        mean, resid = compression.compressed_mean(xd, mesh)
+        mean_err = float((mean + resid - xd).abs().max())
+        if mean_err > 1e-6 or dframe.COLLECTIVES["all_reduce"] != 1:
+            raise AssertionError(f"compressed_mean off by {mean_err}")
+        log(f"  quantize of a {QUANT_SHAPE[0]} x {QUANT_SHAPE[1]} float32 tensor: codes and "
+            f"scales equal the CPU's, residual identity within {resid_err:.3g}; {q_ms:.3f} ms "
+            f"({gpu_name_power()}); compressed_mean over the group within {mean_err:.3g}")
+        out.update(quantize_ms=q_ms)
+        del x, xd, q, s, r, qc, sc, rc, mean, resid
+
+        # a one-stage pipeline against the sequential loop
+        w = torch.randn((8, 256, 256), generator=gen).to(dev) * 0.05
+        h = torch.randn((6, 4, 256), generator=gen).to(dev)
+        got = dpipe.pipeline_forward(dframe.data_mesh(axis="pipe"),
+                                     lambda wl, hl: torch.tanh(hl @ wl), w, h, n_layers=8)
+        want = []
+        for hm in h:  # microbatch by microbatch: products of the pipeline's shapes
+            for wl in w:
+                hm = torch.tanh(hm @ wl)
+            want.append(hm)
+        if not torch.equal(got, torch.stack(want)):
+            raise AssertionError("the one-stage pipeline differs from the sequential loop")
+
+        # a reduced float32 config's weights placed by their partition
+        # specs on a (1, 1) device mesh, checkpointed, restored resharded
+        cfg = reduced(get("qwen3-14b"))
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(3), device=dev)
+        dmesh = make_host_mesh(1, device_type=dev.type)
+        sh = partition.shardings_from_specs(dmesh, {"params": partition.param_specs(params)})
+        named = {k: p.detach() for k, p in params.named_parameters()}
+        placed = partition.distribute_tree(named, sh["params"])
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save({"params": params}, d, 1)
+            back = checkpoint.restore(d, {"params": params}, shardings=sh)
+        for k, p in back["params"].named_parameters():
+            if not (torch.equal(p.full_tensor(), named[k])
+                    and torch.equal(placed[k].to_local(), named[k])):
+                raise AssertionError(f"checkpoint leaf {k} not bit-equal after resharding")
+        log(f"  one-stage pipeline equal to the sequential loop; {len(named)} weights of a "
+            f"reduced Qwen3-14B placed by their specs on a {tuple(dmesh.mesh.shape)} "
+            f"{dev.type} mesh, checkpointed and restored with shardings=, bit-equal")
+    finally:
+        CONFIG.distributed, CONFIG.compiled, CONFIG.out_of_core = saved
+        dist.destroy_process_group()
+    out["k1_launches"] = ops.LAUNCHES["segment_sum"] - k1_before
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 wall {out['wall_s']:.3f} s")
+    return out
+
+
+def compare_results(q: str, got: dict, want: dict, rtol: float = QUERY_RTOL) -> bool:
+    """The same columns, ints, codes and rows exact, floats within ``rtol``
+    (NaN equal to NaN); returns whether every bit held."""
     if set(got) != set(want):
         raise AssertionError(f"{q}: columns {sorted(got)} != {sorted(want)}")
+    bits = True
     for name in want:
         a, b = np.asarray(got[name]), np.asarray(want[name])
         if a.shape != b.shape:
             raise AssertionError(f"{q}.{name}: shape {a.shape} != {b.shape}")
         if a.dtype.kind == "f" or b.dtype.kind == "f":
-            if not np.allclose(a, b, rtol=QUERY_RTOL, atol=0.0, equal_nan=True):
-                raise AssertionError(f"{q}.{name}: floats differ beyond rtol {QUERY_RTOL}")
+            if not np.allclose(a, b, rtol=rtol, atol=0.0, equal_nan=True):
+                raise AssertionError(f"{q}.{name}: floats differ beyond rtol {rtol}")
+            bits = bits and np.array_equal(a, b, equal_nan=True)
         elif not (a == b).all():
             raise AssertionError(f"{q}.{name}: values or row order differ")
+    return bits
 
 
 def main() -> int:
@@ -3099,11 +3449,13 @@ def main() -> int:
     # phase 3e: the same texts compiled, one CUDA graph per plan
     compiled_run = compiled_phase(torch, ops, frames, args.sf, sql_run, res2)
     # phases 10 and 11: out of core and SQL serving over 3d's stores
-    ooc_run, ooc_rows = ooc_phase(torch, ops, seg, sql_run["stores"], sql_run, args.sf, dev)
+    stores = sql_run.pop("stores")
+    ooc_run, ooc_rows, ooc_q1 = ooc_phase(torch, ops, seg, stores, sql_run, args.sf, dev)
     shapes["segment_sum"] += ooc_rows
-    serve_run = serve_phase(torch, ops, frames, sql_run.pop("stores"), sql_run, args.sf, dev,
-                            args.seed)
-    del frames, tables, res1, res2
+    serve_run = serve_phase(torch, ops, frames, stores, sql_run, args.sf, dev, args.seed)
+    # phase 12: the distributed layer, on the same frames and stores
+    dist_run = dist_phase(torch, ops, QF, frames, stores, sql_run, ooc_q1, res2, args.sf, dev)
+    del frames, tables, res1, res2, stores, ooc_q1
     torch.cuda.empty_cache()
 
     # phase 4: card vs CPU plain path, the frame queries and the SQL texts
@@ -3208,6 +3560,9 @@ def main() -> int:
             **({"launches_out_of_core": ooc_run["launches"][name],
                 "launches_serving": serve_run["launches"][name]}
                if name in ooc_run["launches"] else {}),
+            # K1's launches in phase 12 (the distributed layer)
+            **({"launches_distributed": dist_run["k1_launches"]}
+               if name == "segment_sum" else {}),
             # K1's q1 shapes, its mid path and TPC-DS's largest call on
             # each path, K4's later families' shapes,
             # K5's prefill shape (0 launches on the serving path)
@@ -3222,6 +3577,7 @@ def main() -> int:
     log(json.dumps({"compiled_sql": compiled_run}))
     log(json.dumps({"out_of_core": ooc_run}))
     log(json.dumps({"sql_serving": serve_run}))
+    log(json.dumps({"distributed": dist_run}))
     log(json.dumps({"sql_launches": sql_run["launches"],
                     "segment_sum_by_path_pass1": sql_run["by_path"],
                     "substr_find_by_form_pass1": sql_run["by_form"]}))

@@ -2,7 +2,8 @@
 
 Every per-group sum goes through ``kernels.ops.segment_sum``: the
 hand-written segment-sum kernel on the card, its plain version on the
-CPU.
+CPU; under ``CONFIG.distributed`` through ``repro_torch.dist``, whose
+shard-local sums take the same kernel.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .config import CONFIG
 from .frame import INT, TensorFrame, float_dtype
 
 AggSpec = Tuple[str, str, str]  # (out_name, fn, column) — column '' for size
@@ -51,6 +53,19 @@ def _count_weights(frame: TensorFrame, name: str) -> torch.Tensor:
 
 
 def _segment_sum(vals: torch.Tensor, gids: torch.Tensor, m: int) -> torch.Tensor:
+    """Segment sum with an optional sharded route.
+
+    The single-device path is the segment-sum kernel; when the
+    distributed route is enabled (``CONFIG.distributed`` and the process
+    group, see ``repro_torch.dist.dframe.dist_enabled``) the reduction
+    runs as shard-local dense sums + ``all_reduce`` over a data mesh
+    spanning every rank.
+    """
+    if CONFIG.distributed != "off":
+        from ..dist import dframe
+
+        if dframe.dist_enabled(int(vals.shape[0])):
+            return dframe.dist_groupby_sum(dframe.data_mesh(), gids, vals, m)
     return ops.segment_sum(vals.contiguous(), gids.contiguous(), m)
 
 

@@ -23,6 +23,14 @@ class EngineConfig:
     use_device_strings: bool = False
     # Maximum packed string width for the packed string paths.
     max_packed_len: int = 128
+    # Distributed execution route (repro_torch.dist): 'off' never shards,
+    # 'force' always takes the sharded route (tests exercise it on a
+    # one-rank group; it raises when no process group is initialised),
+    # 'auto' shards group-by reduction sums and semi/anti-join probes
+    # when a process group of more than one rank is up and the input has
+    # at least dist_min_rows rows.
+    distributed: str = "auto"
+    dist_min_rows: int = 1 << 16
     # Late materialization: row-subsetting ops return RowView frames that
     # compose gather indices; payloads materialize at pipeline exits.
     # False gives the eager copy-per-op engine.

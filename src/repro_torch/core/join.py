@@ -255,6 +255,18 @@ def membership(probe: torch.Tensor, build: torch.Tensor) -> torch.Tensor:
     return (sb[pos] == probe) & (probe >= 0)
 
 
+def _membership_routed(probe: torch.Tensor, build: torch.Tensor) -> torch.Tensor:
+    """Membership with an optional sharded route: the probe side shards
+    over a data mesh, the (small) build side is replicated on every rank
+    (``repro_torch.dist.dframe.dist_semi_join_mask``)."""
+    if CONFIG.distributed != "off" and int(build.shape[0]) > 0:
+        from ..dist import dframe
+
+        if dframe.dist_enabled(int(probe.shape[0])):
+            return dframe.dist_semi_join_mask(dframe.data_mesh(), probe, build)
+    return membership(probe, build)
+
+
 # ----------------------------------------------------------------------
 # frame stitching
 # ----------------------------------------------------------------------
@@ -474,7 +486,7 @@ def join(
             probe_rows=left.nrows,
             build_rows=right.nrows,
         ):
-            exists = membership(lcodes, rcodes)
+            exists = _membership_routed(lcodes, rcodes)
         return left.mask_rows(exists if how == "semi" else ~exists)
     if how not in ("inner", "left"):
         raise ValueError(f"unsupported join type {how!r}")

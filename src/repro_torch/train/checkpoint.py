@@ -8,10 +8,14 @@ the state, ``/``-joined (``params/blocks/0/attn/wq``); bfloat16 leaves
 are stored as their int16 bits (numpy has no bfloat16) and the manifest
 says ``bfloat16``.  Python ints (the step counts) are 0-d int64 arrays.
 
-``restore(..., device=)`` takes the place of the JAX package's
-``shardings=``: leaves are loaded on the host and moved to ``device``
-(else to the device of the matching leaf of ``like``), so a checkpoint
-written on the card restores on the CPU, and the other way round.
+``restore(..., device=)`` loads leaves on the host and moves them to
+``device`` (else to the device of the matching leaf of ``like``), so a
+checkpoint written on the card restores on the CPU, and the other way
+round.  ``restore(..., shardings=)``, as the JAX package's, places each
+leaf by its ``models.partition.NamedSharding`` on the CURRENT mesh as a
+DTensor: elastic resharding, so a checkpoint written on one rank
+restores onto any mesh.  A ``Params`` takes its shardings keyed by
+parameter name, as ``partition.param_specs`` gives its specs.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from typing import Any, Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from ..models import lm
+from ..models import lm, partition
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
@@ -86,10 +90,13 @@ def restore(
     like: Any,
     step: Optional[int] = None,
     device: Optional[Union[str, torch.device]] = None,
+    shardings: Any = None,
 ) -> Any:
     """A new state with the structure, dtypes and trainability of ``like``
     and the values of checkpoint ``step`` (the latest when None), on
-    ``device`` or, where that is None, on each leaf's device in ``like``."""
+    ``device`` or, where that is None, on each leaf's device in ``like``;
+    where ``shardings`` (a tree like ``like``'s of ``NamedSharding``) is
+    given, each tensor leaf is a DTensor placed by its sharding."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -98,7 +105,7 @@ def restore(
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
 
-    def load(key: str, leaf):
+    def load(key: str, leaf, sharding):
         entry = manifest["leaves"][key]
         arr = np.load(os.path.join(d, entry["file"]))
         if isinstance(leaf, torch.Tensor):
@@ -108,21 +115,26 @@ def restore(
             t = torch.from_numpy(arr)
             if entry["dtype"] == "bfloat16":
                 t = t.view(torch.bfloat16)
+            if sharding is not None:
+                return partition.distribute(t.to(leaf.dtype), sharding)
             return t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
         return type(leaf)(arr)
 
-    def rebuild(tree: Any, prefix: str) -> Any:
+    def rebuild(tree: Any, prefix: str, sh: Any) -> Any:
         if isinstance(tree, lm.Params):
-            out = lm.Params(rebuild(lm.tree_from_names(dict(tree.named_parameters())), prefix))
+            named = lm.tree_from_names(dict(tree.named_parameters()))
+            out = lm.Params(rebuild(named, prefix, None if sh is None else lm.tree_from_names(sh)))
             return out.requires_grad_(any(p.requires_grad for p in tree.parameters()))
         if isinstance(tree, Mapping):
-            return {k: rebuild(v, f"{prefix}/{k}" if prefix else str(k)) for k, v in tree.items()}
+            return {k: rebuild(v, f"{prefix}/{k}" if prefix else str(k),
+                               None if sh is None else sh[k]) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(rebuild(v, f"{prefix}/{i}" if prefix else str(i))
+            return type(tree)(rebuild(v, f"{prefix}/{i}" if prefix else str(i),
+                                      None if sh is None else sh[i])
                               for i, v in enumerate(tree))
-        return load(prefix, tree)
+        return load(prefix, tree, sh)
 
-    return rebuild(like, "")
+    return rebuild(like, "", shardings)
 
 
 def prune(directory: str, keep: int = 3) -> None:

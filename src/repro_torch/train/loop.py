@@ -73,6 +73,7 @@ class TrainLoop:
         ckpt_every: int = 50,
         max_step_retries: int = 2,
         device: Optional[Union[str, torch.device]] = None,
+        state_shardings: Any = None,
         deadline_s: float = 30.0,
         fault_hook: Optional[Callable[[int], None]] = None,  # test injection
     ):
@@ -83,6 +84,7 @@ class TrainLoop:
         self.ckpt_every = ckpt_every
         self.max_step_retries = max_step_retries
         self.device = device
+        self.state_shardings = state_shardings
         self.fault_hook = fault_hook
         self.metrics_history = []
         self._preempted = False
@@ -100,7 +102,8 @@ class TrainLoop:
             step = checkpoint.latest_step(self.ckpt_dir)
             log.info("restoring checkpoint step %s", step)
             self.state = checkpoint.restore(self.ckpt_dir, self.state, step=step,
-                                            device=self.device)
+                                            device=self.device,
+                                            shardings=self.state_shardings)
             return step
         return None
 

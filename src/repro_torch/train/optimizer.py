@@ -15,8 +15,10 @@ layers, so a block weight of rank 1 (a norm scale, (L, D) stacked) is
 factored across layers.  The port stacks each group of per-block weights
 (``blocks.<i>.attn.wq`` for every i) the same way for the update, so both
 packages keep the same moments (keyed by the group, ``blocks.attn.wq``)
-and make the same updates.  ``state_specs`` (the TPU sharding of the
-state) has no counterpart here yet.
+and make the same updates.  ``state_specs`` gives the partition spec of
+every leaf of the state from the weights' (``models.partition``): a
+per-weight leaf the weight's own, a stacked group's moments the
+reference's stacked spec.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.lm import Params
+from ..models.partition import P
 
 Grads = Dict[str, torch.Tensor]
 
@@ -35,6 +38,7 @@ Grads = Dict[str, torch.Tensor]
 class Optimizer:
     init: Callable[[Params], Dict]
     update: Callable[[Grads, Dict, Params], Dict]  # (grads, state, params) -> state
+    state_specs: Callable[[Dict[str, P], Params], Dict]  # (param_specs, params) -> specs
 
 
 def _f32_pow(base: float, step: int) -> float:
@@ -78,7 +82,15 @@ def adamw(
             p.copy_(master)
         return {"m": state["m"], "v": state["v"], "master": state["master"], "step": step}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs: Dict[str, P], params: Params) -> Dict:
+        return {
+            "m": param_specs,
+            "v": param_specs,
+            "master": param_specs,
+            "step": P(),
+        }
+
+    return Optimizer(init, update, state_specs)
 
 
 # ----------------------------------------------------------------------
@@ -145,7 +157,27 @@ def adafactor(lr: float = 1e-3, eps: float = 1e-30, clip: float = 1.0,
                 p.copy_(p.to(torch.float32) - lr * (u[i] if stacked else u))
         return {"moments": moments, "step": step}
 
-    return Optimizer(init, update)
+    def state_specs(param_specs: Dict[str, P], params: Params) -> Dict:
+        def leaf_spec(spec, shape):
+            if _factored(shape):
+                return {
+                    "vr": P(*spec[: len(shape) - 1]),
+                    "vc": P(*(list(spec[: len(shape) - 2]) + [spec[len(shape) - 1]]))
+                    if len(spec) >= len(shape)
+                    else P(),
+                }
+            return {"v": P(*spec)}
+
+        moments = {}
+        for key, members in groups(params).items():
+            stacked = _stacked(members)
+            shape = ((len(members),) if stacked else ()) + tuple(members[0][1].shape)
+            # a stacked group's spec: the weight's with the layer dim in front
+            spec = ((None,) if stacked else ()) + tuple(param_specs[members[0][0]])
+            moments[key] = leaf_spec(spec + (None,) * (len(shape) - len(spec)), shape)
+        return {"moments": moments, "step": P()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def get_optimizer(name: str) -> Optimizer:

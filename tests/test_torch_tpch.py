@@ -162,6 +162,8 @@ NAMED_MODULES = (
     "sql/analyze.py", "sql/udf.py", "sql/compile.py", "serve/engine.py",
     "core/pipeline.py", "sql/stream.py", "serve/sql.py",
     "serve/admission.py", "serve/stats.py", "launch/run_capped.py",
+    "dist/dframe.py", "dist/compression.py", "dist/pipeline.py", "launch/mesh.py",
+    "models/partition.py",
 )
 
 
@@ -190,6 +192,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not loaded, loaded\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing the port made a process group'\n"
         f"for name in {names!r}:\n"
         "    assert name in sys.modules, name\n"
         "print('clean')\n"
