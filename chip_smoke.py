@@ -90,7 +90,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the eager child must die of ``torch.OutOfMemoryError`` under it and
    the streamed child must match the uncapped results;
 11. SQL serving: one ``Executor`` over the TPC-H scope (lineitem and
-   orders as stores, the rest as frames), 8 client threads each
+   orders as stores, the rest as frames), 4 client threads each
    submitting the 22 texts in an order shuffled from ``--seed`` and only
    waiting on their futures, each result equal to 3d's; batches,
    coalesced requests and shared scans counted, none failing; p50 and
@@ -159,6 +159,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card (K2's find and K1 in ``curate``), K4's and K5's forward and
    backward launches of a step asserted, step time, tokens per second,
    peak memory and a profiled step;
+13. (run after phase 8) the sharded dry run and the step on DTensors:
+   (a) ``python -m repro_torch.launch.dryrun`` in child processes for
+   Qwen3-14B ``train_4k`` (depth cut to 16 layers through
+   ``--override n_layers=``, the cut printed) and RWKV6-7B
+   ``prefill_32k`` on the 16 x 16 fake mesh at full width, each ``ok``,
+   one JSON line each with its seconds; (b) on a one-rank NCCL group and
+   a (1, 1) mesh, every weight, optimizer leaf and batch a DTensor placed
+   by its spec, at full width and 2 layers: a Qwen3-14B train step of 4 x
+   4096 tokens and a prefill, and an RWKV6-7B prefill, each bit-equal to
+   the unsharded step's with equal K4, K4-bwd and K5 launches (K4 and K5
+   run on the local shards through ``local_map``); (c) ``run_cell(...,
+   mesh=)`` predicts the sharded train step's peak, printed beside
+   ``torch.cuda.max_memory_allocated`` and their ratio, which must lie
+   in [0.8, 1.25];
 9. (run after phase 4) TPC-DS and storage: the five TPC-DS queries at SF
    1 from ``--seed`` on frames on the card, twice (cold and warm; each
    query that groups must launch the segment sum; pass 2 held to pass 1),
@@ -175,7 +189,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
 5. one JSON line of the compiled pass (phase 3e), one of phase 10, one
-   of phase 11, one of phase 12, one of the SQL pass's launches (phase
+   of phase 11, one of phase 12, one of phase 13 (each kernel's launches
+   on DTensors also in the kernels line, ``launches_sharded``), one of
+   the SQL pass's launches (phase
    3d), one JSON line describing every kernel (its launches those of its
    main path; K1's and K2's launches in phases 10 and 11, and K1's in
    phase 12, beside them), the
@@ -230,11 +246,13 @@ QUERY_RTOL = 1e-8
 # of each kernel at each main-path shape (phase 2b).
 CHECK_SF = 0.01
 REPS = 20
-# Profiler sessions tried for one kernel's device time (phases 2b and 3b),
-# and the short kernels (torch.cuda._sleep, whose device kernel is named
-# spin_kernel) that open each session of phases 3b and 6 before the work
-# it measures, to take the loss of a session's first device events
-PROFILE_TRIES = 3
+# Profiler sessions tried for one kernel's device time (phases 2b, 3b and
+# 9), and the short kernels (torch.cuda._sleep, whose device kernel is
+# named spin_kernel) that open each session of phases 3b and 6 and of
+# ``device_ms`` before the work it measures, to take the loss of a
+# session's first device events (three sessions in a row of one phase 9
+# row once recorded no kernel)
+PROFILE_TRIES = 5
 PAD_KERNELS, PAD_CYCLES, PAD_KEY = 64, 2000, "spin_kernel"
 # K2's edge checks: rows, row widths, pattern lengths (and L itself), and the
 # bytes rows and patterns are drawn from (NUL and bytes >= 0x80 among them)
@@ -339,6 +357,9 @@ def device_ms(torch, fn, kernel_key: str, reps: int, per_call: bool = False) -> 
     # the measurement is taken again, up to PROFILE_TRIES sessions.
     for attempt in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_KERNELS):
+                torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
@@ -1146,13 +1167,6 @@ def bwd_edge_phase(torch, dev) -> None:
     check_autograd_functions(torch, rng, dev)
 
 
-def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
-    """(query, key) pairs the mask keeps: the work K4 must do."""
-    if not causal:
-        return Sq * Sk
-    return sum(min(Sk, i + (Sk - Sq) + 1) for i in range(Sq))
-
-
 def attention_inputs(torch, rng, dev, B, Hq, Hkv, Sq, Sk, D):
     """bf16 q, k, v of one prefill attention call, q strided as the model
     hands it over."""
@@ -1168,13 +1182,14 @@ def attention_row(torch, q, k, v, causal: bool, label: str) -> dict:
     inputs; its bound at the bf16 tensor-core rate."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import flash_attention_plain, flash_attention_sm90
+    from repro_torch.kernels.flash_attention import (
+        attention_cost, flash_attention_plain, flash_attention_sm90,
+    )
 
     B, Hq, Sq, D = q.shape
-    Sk = k.shape[2]
+    Hkv, Sk = k.shape[1], k.shape[2]
     qd = q.contiguous()
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())  # q, k, v read; o written
-    nops = 4 * D * attention_pairs(Sq, Sk, causal) * Hq * B
+    nbytes, nops = attention_cost(B, Hq, Hkv, Sq, Sk, D, causal, q.element_size())
     b_ms, b_by = bound_ms(nbytes, nops, PEAK_BF16_OPS_PER_S)
     p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, causal), LM_REPS)
     l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -1197,8 +1212,10 @@ def lm_main_shape_phase(torch, dev) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
-    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.flash_attention import (
+        attention_cost, flash_attention_cuda, flash_attention_plain,
+    )
+    from repro_torch.kernels.wkv6 import wkv6_cost, wkv6_cuda, wkv6_plain
 
     log("phase 2b: LM main-path shapes")
     rng = np.random.default_rng(12)
@@ -1217,7 +1234,7 @@ def lm_main_shape_phase(torch, dev) -> dict:
     # float32 inputs
     q, qd, k, v = (t.float() for t in (q, qd, k, v))  # q keeps the model's strides
     label = label.replace("bf16", "float32")
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes, _ = attention_cost(B, Hq, Hkv, S, S, D, True, q.element_size())
     b_ms, b_by = bound_ms(nbytes, TF32_PRODUCTS * nops, PEAK_TF32_OPS_PER_S)
     cc_ms, _ = bound_ms(nbytes, nops, PEAK_OPS_PER_S)
     p_ms = cuda_ms(torch, lambda: flash_attention_plain(q, k, v, True), 2)
@@ -1272,9 +1289,7 @@ def lm_main_shape_phase(torch, dev) -> dict:
         k_ms = cuda_ms(torch, step, reps)
         d_ms = device_ms(torch, step, "wkv6_kernel", reps)
         p_ms = cuda_ms(torch, lambda: wkv6_plain(*args), reps if T == 1 else 1)
-        nbytes = (5 * B * H * T * D * 2 + H * D * 2  # r, k, v, w read, y written; u
-                  + 2 * B * H * D * D * 4)  # state read and written
-        nops = 7 * B * H * T * D * D
+        nbytes, nops = wkv6_cost(B, H, T, D, r.element_size(), u.element_size())
         b_ms, b_by = bound_ms(nbytes, nops)
         row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                    library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
@@ -1295,10 +1310,10 @@ def bwd_main_shape_phase(torch, dev) -> dict:
 
     from repro_torch.configs import get
     from repro_torch.kernels.flash_attention import (
-        BWD_KERNELS, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        BWD_KERNELS, attention_bwd_cost, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_fwd_cuda,
     )
-    from repro_torch.kernels.wkv6 import wkv6_bwd_cuda, wkv6_bwd_plain
+    from repro_torch.kernels.wkv6 import wkv6_bwd_cost, wkv6_bwd_cuda, wkv6_bwd_plain
 
     log("phase 2b: backward kernels at the training shapes")
     rng = np.random.default_rng(14)
@@ -1318,10 +1333,7 @@ def bwd_main_shape_phase(torch, dev) -> dict:
         name = str(dtype).replace("torch.", "")
         label = f"qwen3-14b training: B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} {name} causal"
         err = check_attention_bwd(torch, rng, q, k, v, True, label)
-        # five products of 2 D a kept (query, key) pair and head; q, k, v,
-        # o, dO and lse read, dq, dk, dv written
-        nops = 5 * 2 * D * attention_pairs(S, S, True) * Hq * B
-        nbytes = q.element_size() * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+        nbytes, nops = attention_bwd_cost(B, Hq, Hkv, S, S, D, True, q.element_size())
         b_ms, b_by = bound_ms(nbytes, nops, peak)
         bwd = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, True)
         k_ms = cuda_ms(torch, bwd, LM_REPS)
@@ -1356,12 +1368,7 @@ def bwd_main_shape_phase(torch, dev) -> dict:
     # wkv6_bwd_{states,rows,cols,du}_kernel
     d_ms = device_ms(torch, bwd, "wkv6_bwd_", 3, per_call=True)
     p_ms = cuda_ms(torch, lambda: wkv6_bwd_plain(*args, dy), 1)
-    n = 1 * H * TRAIN_SEQ
-    # the forward recurrence again (P_t), G's recurrence, and dr, dk, dv,
-    # dw: 3 + 3 + 4 * 2 = 14 D^2 a head and step; r, k, v, w, dy read, dr,
-    # dk, dv, dw written, u read and du written
-    nops = 14 * n * D * D
-    nbytes = 9 * n * D * 2 + 2 * H * D * 4
+    nbytes, nops = wkv6_bwd_cost(1, H, TRAIN_SEQ, D, args[0].element_size())
     b_ms, b_by = bound_ms(nbytes, nops)
     row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
                library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
@@ -2864,14 +2871,14 @@ def ooc_phase(torch, ops, seg, stores, sql_run: dict, sf: float, dev):
 # phase 11: SQL serving
 # ----------------------------------------------------------------------
 #: client threads of phase 11, each submitting the 22 texts
-SERVE_CLIENTS = 8
+SERVE_CLIENTS = 4
 #: q6's l_quantity literal, eight values through one Prepared statement
 PREPARED_QTYS = (24, 25, 23, 30, 12, 40, 18, 33)
 
 
 def serve_phase(torch, ops, frames, stores, sql_run: dict, sf: float, dev, seed: int) -> dict:
     """Phase 11: an ``Executor`` over the TPC-H scope on the card (lineitem
-    and orders as stores, the rest as frames): 8 client threads each
+    and orders as stores, the rest as frames): 4 client threads each
     submit the 22 texts in a shuffled order and only wait on their
     futures (the admission worker is the one thread on the card); each
     result equals 3d's; then a Prepared q6, a session UDF, a timeout, a
@@ -3332,6 +3339,257 @@ def dist_phase(torch, ops, QF, frames, stores, sql_run: dict, ooc_q1: dict,
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: the sharded dry run, and the step on DTensors on the card
+# ----------------------------------------------------------------------
+#: the dry-run cells of phase 13(a), each in a child process on the 16 x
+#: 16 fake mesh at full width, with the depth it is cut to (through
+#: ``--override n_layers=``; None: every layer).  On the card machine's
+#: host the Qwen3-14B child took 14.7 s for 16 of its 40 layers and 35.4
+#: s for all 40, which held the whole script 20 s longer against its
+#: time limit; the RWKV6-7B child takes 6 s for all 32
+DRYRUN_CELLS = (("qwen3-14b", "train_4k", 16), ("rwkv6-7b", "prefill_32k", None))
+DRYRUN_TIMEOUT_S = 600
+#: phase 13(b): the layers each model keeps at full width on the (1, 1)
+#: mesh, Qwen3-14B's train batch (4 microbatches of 1 x 4096), the
+#: prefills' batch and length
+SHARDED_LAYERS, SHARDED_TRAIN_BATCH, SHARDED_SEQ = 2, 4, 4096
+#: the band the predicted peak of the sharded train step must fall in, as
+#: a share of the card's measured peak (phase 13(c))
+PEAK_BAND = (0.8, 1.25)
+
+
+def dryrun_children(out_dir: Path) -> list:
+    """Start phase 13(a)'s children, one ``repro_torch.launch.dryrun`` each."""
+    import os
+
+    out = []
+    for arch, shape, layers in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+               "--out", str(out_dir)]
+        if layers:
+            cmd += ["--override", f"n_layers={layers}"]
+        proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+                                cwd=str(ROOT), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        out.append((arch, shape, layers, proc))
+    return out
+
+
+def dryrun_results(children: list, out_dir: Path) -> list:
+    """Wait for phase 13(a)'s children; each cell must report ``ok``."""
+    cells = []
+    for arch, shape, layers, proc in children:
+        try:
+            text = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        # the child's own time (it is collected after phase 13(b))
+        done = [ln for ln in text.splitlines() if ln.startswith("done:")]
+        seconds = float(done[-1].split(" in ")[-1].rstrip(" s")) if done else None
+        path = out_dir / f"{arch}__{shape}__16x16.json"
+        if proc.returncode != 0 or not path.exists():
+            log(text[-4000:])
+            raise AssertionError(f"dry run of {arch} {shape} exited {proc.returncode}")
+        cell = json.loads(path.read_text())
+        if cell["status"] != "ok":
+            raise AssertionError(f"dry run of {arch} {shape}: {cell.get('error')}")
+        keep = ("arch", "shape", "mesh", "chips", "status", "trace_s", "flops_per_device",
+                "bytes_per_device", "collective_bytes_total", "collectives", "memory",
+                "kernels", "roofline", "tokens", "model_flops")
+        line = {k: cell[k] for k in keep}
+        line.update(child_s=seconds, layers=layers or "all")
+        log(json.dumps({"dryrun_cell": line}))
+        if layers:
+            log(f"  {arch} {shape}: depth cut to {layers} layers (--override n_layers={layers}) "
+                f"to keep the script inside its time limit")
+        cells.append(line)
+    return cells
+
+
+def distribute_params(lm, partition, params, mesh, specs):
+    """``params`` as a ``Params`` of DTensors placed by ``specs`` on ``mesh``."""
+    shardings = partition.shardings_from_specs(mesh, specs)
+    return lm.Params(lm.tree_from_names({
+        name: partition.distribute(p.detach(), shardings[name])
+        for name, p in params.named_parameters()}))
+
+
+def sharded_phase(torch, ops, dev, seed: int) -> dict:
+    """Phase 13: (a) the dry run's children on the fake 16 x 16 mesh, run
+    beside (b) the step on DTensors on the card: a one-rank NCCL group and
+    a (1, 1) mesh, every weight, optimizer leaf and batch a DTensor placed
+    by its spec, at full width and SHARDED_LAYERS layers: a Qwen3-14B train
+    step and prefill and an RWKV6-7B prefill, each equal to the unsharded
+    step's, bit for bit, with equal K4, K4-bwd and K5 launches; (c) the
+    dry run's prediction of the sharded train step's peak on the same
+    mesh against the card's measured peak."""
+    log(f"phase 13: the sharded dry run (children on the fake 16 x 16 mesh) and the step on "
+        f"DTensors on a (1, 1) mesh ({SHARDED_LAYERS} layers at full width)")
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "artifacts" / "dryrun_torch"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    children = dryrun_children(out_dir)
+    try:
+        out = sharded_steps(torch, ops, dev, seed)
+        out["dryrun"] = dryrun_results(children, out_dir)
+    finally:
+        for *_, proc in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13 wall {out['wall_s']:.3f} s")
+    return out
+
+
+def sharded_steps(torch, ops, dev, seed: int) -> dict:
+    """Phase 13 (b) and (c), on a one-rank NCCL group and a (1, 1) mesh."""
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get
+    from repro_torch.dist import dframe
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models import lm, partition
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    kernels = ("flash_attention_sm90", "flash_attention_bwd_sm90", "wkv6")
+    out = {"launches_sharded": {}}
+
+    def counted(fn):
+        ops.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {n: c for n, c in ops.LAUNCHES.items() if c}
+
+    def add(launches):
+        for n, c in launches.items():
+            out["launches_sharded"][n] = out["launches_sharded"].get(n, 0) + c
+
+    def same(label, got, want, launches, want_launches):
+        equal = torch.equal(got, want)
+        err = float((got.double() - want.double()).abs().max())
+        log(f"  {label}: sharded equal to unsharded bit for bit: {equal} (max abs diff {err}); "
+            f"launches sharded {launches}, unsharded {want_launches}")
+        if not equal:
+            raise AssertionError(f"{label}: the sharded result differs from the unsharded")
+        if {n: launches.get(n, 0) for n in kernels} != {n: want_launches.get(n, 0)
+                                                       for n in kernels}:
+            raise AssertionError(f"{label}: launches {launches} against {want_launches}")
+
+    dframe.init_local(dev)
+    try:
+        mesh = make_host_mesh(1, device_type="cuda")
+        rng = np.random.default_rng(seed + 13)
+        qc = dataclasses.replace(get("qwen3-14b"), n_layers=SHARDED_LAYERS)
+        opt = get_optimizer(qc.optimizer)
+        step = make_train_step(qc)
+        tokens = rng.integers(0, qc.vocab, (SHARDED_TRAIN_BATCH, SHARDED_SEQ + 1))
+        batch = {"tokens": torch.as_tensor(tokens[:, :-1], device=dev),
+                 "labels": torch.as_tensor(tokens[:, 1:], device=dev)}
+        gen = lambda: torch.Generator(dev).manual_seed(seed)
+
+        # (b) the train step, sharded first: its peak is the one predicted
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        state = init_train_state(qc, gen(), device=dev)
+        pspecs = partition.param_specs(state["params"], qc)
+        specs = {"params": pspecs, "opt": opt.state_specs(pspecs, state["params"]),
+                 "step": partition.P()}
+        dparams = distribute_params(lm, partition, state["params"], mesh, pspecs)
+        dopt = partition.distribute_tree(
+            state["opt"], partition.shardings_from_specs(mesh, specs["opt"]))
+        del state
+        dparams.requires_grad_(True)
+        dstate = {"params": dparams, "opt": dopt, "step": 0}
+        dbatch = partition.distribute_tree(
+            batch, partition.shardings_from_specs(mesh, partition.batch_specs(mesh, batch)))
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with implicit_replication():
+            (dstate, dm), launches = counted(lambda: step(dstate, dbatch))
+        step_ms = (time.perf_counter() - t) * 1e3
+        measured = torch.cuda.max_memory_allocated() - base
+        add(launches)
+        placements = {n: [repr(pl) for pl in p.placements]
+                      for n, p in list(dparams.named_parameters())[:4]}
+        got = {"loss": dm["loss"].full_tensor(), "grad_norm": dm["grad_norm"].full_tensor(),
+               **{n: p.full_tensor().detach().cpu() for n, p in dparams.named_parameters()}}
+        log(f"  qwen3-14b sharded train step ({SHARDED_TRAIN_BATCH} x {SHARDED_SEQ}, "
+            f"{qc.microbatches} microbatches): {step_ms:.3f} ms, loss {float(got['loss']):.6f}, "
+            f"resident {resident / 1e9:.3f} GB, peak {measured / 1e9:.3f} GB; placements "
+            f"{json.dumps(placements)}")
+        del dstate, dparams, dopt, dm, dbatch
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = init_train_state(qc, gen(), device=dev)
+        (state, m), want_launches = counted(lambda: step(state, batch))
+        for key in ("loss", "grad_norm"):
+            same(f"qwen3-14b train step {key}", got.pop(key), m[key], launches, want_launches)
+        for name, p in state["params"].named_parameters():
+            if not torch.equal(got[name], p.detach().cpu()):
+                raise AssertionError(f"qwen3-14b train step: weight {name} differs")
+        log(f"  qwen3-14b train step: all {len(got)} updated weights equal bit for bit")
+        del state, m, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the dry run's prediction of that step's peak on this mesh
+        t = time.perf_counter()
+        cell = dryrun.run_cell(
+            "qwen3-14b", ShapeSpec("train_4k_b4", SHARDED_SEQ, SHARDED_TRAIN_BATCH, "train"),
+            False, {"n_layers": SHARDED_LAYERS}, mesh=mesh)
+        predicted = cell["memory"]["peak_bytes"]
+        ratio = predicted / measured
+        out["peak"] = {"predicted_bytes": predicted, "measured_bytes": measured,
+                       "ratio": ratio, "argument_bytes": cell["memory"]["argument_bytes"],
+                       "resident_bytes": resident, "trace_s": time.perf_counter() - t}
+        log(f"  predicted peak of the sharded train step {predicted / 1e9:.3f} GB (arguments "
+            f"{cell['memory']['argument_bytes'] / 1e9:.3f} GB), measured "
+            f"max_memory_allocated {measured / 1e9:.3f} GB (resident {resident / 1e9:.3f} "
+            f"GB): ratio {ratio:.4f}")
+        if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+            raise AssertionError(f"predicted peak / measured {ratio:.4f} outside {PEAK_BAND}")
+
+        # (b) the prefills: Qwen3-14B, then RWKV6-7B
+        for arch in ("qwen3-14b", "rwkv6-7b"):
+            cfg = dataclasses.replace(get(arch), n_layers=SHARDED_LAYERS)
+            params = lm.init_params(cfg, gen(), device=dev)
+            pb = model_inputs(torch, cfg, dev, 1, SHARDED_SEQ, seed)
+            want, want_launches = counted(lambda: lm.prefill(cfg, params, pb))
+            dparams = distribute_params(lm, partition, params, mesh,
+                                        partition.param_specs(params, cfg))
+            dpb = partition.distribute_tree(
+                pb, partition.shardings_from_specs(mesh, partition.batch_specs(mesh, pb)))
+            with implicit_replication():
+                dlogits, launches = counted(lambda: lm.prefill(cfg, dparams, dpb))
+            add(launches)
+            same(f"{arch} prefill (1 x {SHARDED_SEQ})", dlogits.full_tensor(), want, launches,
+                 want_launches)
+            del params, dparams, want, dlogits
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    for name in kernels:
+        if not out["launches_sharded"].get(name):
+            raise AssertionError(f"{name} never launched on DTensors")
+    return out
+
+
 def compare_results(q: str, got: dict, want: dict, rtol: float = QUERY_RTOL) -> bool:
     """The same columns, ints, codes and rows exact, floats within ``rtol``
     (NaN equal to NaN); returns whether every bit held."""
@@ -3494,6 +3752,8 @@ def main() -> int:
     # phase 8: training, card vs CPU, then at full width
     train_f32 = train_check_phase(torch, ops, dev)
     train_runs = train_phase(torch, ops, dev, args.seed)
+    # phase 13: the sharded dry run, and K4 and K5 under DTensor
+    sharded_run = sharded_phase(torch, ops, dev, args.seed)
     # launches of each kernel in its main-path run: K4's bf16 kernel in
     # Qwen3-14B's prefill, its f32 kernel in the reduced f32 Qwen3-14B
     # prefill of phase 7, K5 in RWKV6-7B's serving run, K3 in its one call
@@ -3563,6 +3823,8 @@ def main() -> int:
             # K1's launches in phase 12 (the distributed layer)
             **({"launches_distributed": dist_run["k1_launches"]}
                if name == "segment_sum" else {}),
+            # launches on DTensors in phase 13 (the step on the (1, 1) mesh)
+            "launches_sharded": sharded_run["launches_sharded"].get(name, 0),
             # K1's q1 shapes, its mid path and TPC-DS's largest call on
             # each path, K4's later families' shapes,
             # K5's prefill shape (0 launches on the serving path)
@@ -3578,6 +3840,7 @@ def main() -> int:
     log(json.dumps({"out_of_core": ooc_run}))
     log(json.dumps({"sql_serving": serve_run}))
     log(json.dumps({"distributed": dist_run}))
+    log(json.dumps({"sharded": sharded_run}))
     log(json.dumps({"sql_launches": sql_run["launches"],
                     "segment_sum_by_path_pass1": sql_run["by_path"],
                     "substr_find_by_form_pass1": sql_run["by_form"]}))

@@ -32,6 +32,7 @@ SQL route calls the segment-sum kernel itself and never reaches here.
 from __future__ import annotations
 
 import dataclasses
+from datetime import timedelta
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -112,23 +113,26 @@ def data_mesh(ndev: Optional[int] = None, axis: str = AXIS) -> DataMesh:
     return DataMesh(_SUBGROUPS[key], axis)
 
 
-def init_local(device: Union[str, torch.device]) -> DataMesh:
+def init_local(device: Union[str, torch.device],
+               timeout: Optional[timedelta] = None) -> DataMesh:
     """The one-rank process group that the JAX package's one-device mesh
     stands for: gloo for CPU tensors and, where ``device`` is a CUDA
     device, NCCL for CUDA tensors (made at once, so a card whose NCCL
-    cannot start fails here).  Returns its mesh; tear it down with
-    ``torch.distributed.destroy_process_group()``."""
+    cannot start fails here).  ``timeout`` bounds each collective (the
+    process group's default where None).  Returns its mesh; tear it down
+    with ``torch.distributed.destroy_process_group()``."""
     dev = torch.device(device)
     if _group_up():
         raise ProcessGroupError("a process group is already initialised")
     store = dist.HashStore()
+    kw = {} if timeout is None else {"timeout": timeout}
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
         dist.init_process_group(backend="cpu:gloo,cuda:nccl", store=store, rank=0,
-                                world_size=1, device_id=dev)
+                                world_size=1, device_id=dev, **kw)
     elif dev.type == "cpu":
-        dist.init_process_group(backend="gloo", store=store, rank=0, world_size=1)
+        dist.init_process_group(backend="gloo", store=store, rank=0, world_size=1, **kw)
     else:
         raise ValueError(f"unsupported device {dev}")
     return data_mesh()

@@ -11,6 +11,9 @@ import: machines without ``nvcc`` import this module freely.
 ``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds
 one right where it launches its kernel and nowhere else, so a count
 taken around a run shows whether that run went through the kernel.
+``FAKE_COSTS`` records, by kernel name, the calls that took the fake
+route (fake or meta tensors: shapes only, nothing launched) with the
+bytes and operations the kernel would have spent on them.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from pathlib import Path
 from typing import Dict, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -71,6 +75,29 @@ _FNS: Dict[str, object] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+#: kernel name -> {"calls", "bytes", "ops"} of the fake route's calls
+FAKE_COSTS: Dict[str, Dict[str, int]] = {}
+
+
+def record_fake(name: str, nbytes: int, nops: int) -> None:
+    """Count one fake-route call of kernel ``name`` with its bytes and
+    operations (the kernel's cost formula at the call's shapes)."""
+    cost = FAKE_COSTS.setdefault(name, {"calls": 0, "bytes": 0, "ops": 0})
+    cost["calls"] += 1
+    cost["bytes"] += int(nbytes)
+    cost["ops"] += int(nops)
+
+
+def reset_fake_costs() -> None:
+    FAKE_COSTS.clear()
+
+
+def is_fake(t: torch.Tensor) -> bool:
+    """A tensor without data: a meta tensor or a ``FakeTensor`` (whose
+    device may say ``cuda``)."""
+    return t.is_meta or isinstance(t, FakeTensor)
 
 
 def wants_grad(*tensors) -> bool:

@@ -37,6 +37,13 @@ dtype as the forward is (``BWD_KERNELS``): bf16 in
 ``flash_attention_bwd_plain`` is the same arithmetic in plain PyTorch.
 ``flash_attention_cuda`` itself raises on inputs that want a gradient:
 its output would have none.
+
+``attention_cost`` and ``attention_bwd_cost`` give the bytes a call must
+move and the operations it must do, the one definition the bounds in
+``chip_smoke.py`` and the dry run's counts use.  ``flash_attention_fake``
+(and ``FakeFlashAttentionFn`` with a gradient) is the fake route for
+fake or meta tensors: outputs of the kernel's shapes and dtypes, nothing
+launched, the call's cost recorded in ``build.FAKE_COSTS``.
 """
 from __future__ import annotations
 
@@ -453,3 +460,77 @@ class FlashAttentionFn(torch.autograd.Function):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, lse, do, ctx.causal)
         return dq, dk, dv, None
+
+
+# ----------------------------------------------------------------------
+# cost formulas and the fake route
+# ----------------------------------------------------------------------
+def attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask keeps: the work K4 must do.  Causal
+    keeps key j for query i when j <= i + (Sk - Sq), so Sk - Sq + 1 + i
+    keys for query i (Sq <= Sk)."""
+    if not causal:
+        return Sq * Sk
+    return Sq * (Sk - Sq + 1) + Sq * (Sq - 1) // 2
+
+
+def attention_cost(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, D: int, causal: bool,
+                   itemsize: int) -> Tuple[int, int]:
+    """(bytes, operations) of one forward call: q, k, v read once and o
+    written; a multiply and an add for each of the 2 D products of a kept
+    (query, key) pair and query head (QK^T and PV)."""
+    nbytes = itemsize * (2 * B * Hq * Sq * D + 2 * B * Hkv * Sk * D)
+    return nbytes, 4 * D * attention_pairs(Sq, Sk, causal) * Hq * B
+
+
+def attention_bwd_cost(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, D: int, causal: bool,
+                       itemsize: int) -> Tuple[int, int]:
+    """(bytes, operations) of one backward call: q, o, dO read and dq
+    written, k, v read and dk, dv written, the float32 lse read; five
+    products of 2 D a kept pair and query head (S again, dP, dV, dQ, dK)."""
+    nbytes = itemsize * (4 * B * Hq * Sq * D + 4 * B * Hkv * Sk * D) + 4 * B * Hq * Sq
+    return nbytes, 5 * 2 * D * attention_pairs(Sq, Sk, causal) * Hq * B
+
+
+def _fake_record(table, q, k, causal: bool, cost) -> str:
+    if q.dtype not in table:
+        raise TypeError(f"flash_attention kernel takes float32/bfloat16, got {q.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    name = table[q.dtype]
+    build.record_fake(name, *cost(B, Hq, Hkv, Sq, Sk, D, causal, q.element_size()))
+    return name
+
+
+def flash_attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, lse: bool = False):
+    """The fake route of the forward kernel: ``_launch``'s outputs, o (B,
+    Hq, Sq, D) in q's dtype (and with ``lse`` the float32 (B, Hq, Sq)
+    log-sum-exp), unwritten; the call's cost goes to ``build.FAKE_COSTS``."""
+    _check_shapes(q, k, v, causal)
+    _fake_record(FWD_KERNELS, q, k, causal, attention_cost)
+    B, Hq, Sq, D = q.shape
+    o = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    if not lse:
+        return o
+    return o, torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+
+
+class FakeFlashAttentionFn(torch.autograd.Function):
+    """``FlashAttentionFn`` on fake or meta tensors: the same saved tensors
+    and output shapes, both kernels' costs recorded, nothing computed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = flash_attention_fake(q, k, v, causal, lse=True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, _, _ = ctx.saved_tensors
+        _fake_record(BWD_KERNELS, q, k, ctx.causal, attention_bwd_cost)
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        return dq, torch.empty(k.shape, dtype=k.dtype, device=k.device), \
+            torch.empty(v.shape, dtype=v.dtype, device=v.device), None

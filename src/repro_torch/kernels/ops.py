@@ -7,22 +7,34 @@ launch raises.  Where autograd wants a gradient of attention (K4) or the
 WKV recurrence (K5), a CUDA tensor goes through the kernel's autograd
 Function (its forward kernel, then its backward kernel); on the CPU
 autograd differentiates the plain version.
+
+K4 and K5 have two more routes.  A fake or meta tensor (shapes without
+data, as the dry run traces the step) takes the fake route: outputs of
+the kernel's shapes and dtypes, the call's bytes and operations recorded
+in ``build.FAKE_COSTS``, nothing launched (``FakeFlashAttentionFn`` /
+``FakeWkv6Fn`` where a gradient is wanted).  A DTensor goes to
+``kernels.sharded``, which runs the kernel on each rank's local shards
+through ``local_map`` and comes back here with plain tensors.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from . import build
+from . import build, sharded
 from .build import LAUNCHES  # noqa: F401  (re-exported)
-from .flash_attention import FlashAttentionFn, flash_attention_cuda, flash_attention_plain
+from .flash_attention import (
+    FakeFlashAttentionFn, FlashAttentionFn, flash_attention_cuda, flash_attention_fake,
+    flash_attention_plain,
+)
 from .hash32x2 import hash32x2_cuda, hash32x2_plain
 from .segment_reduce import PATH_LAUNCHES, segment_sum_cuda, segment_sum_plain
 from .substr_find import (
     MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
 )
-from .wkv6 import Wkv6Fn, wkv6_cuda, wkv6_plain
+from .wkv6 import FakeWkv6Fn, Wkv6Fn, wkv6_cuda, wkv6_fake, wkv6_plain
 
 
 def reset_launches() -> None:
@@ -34,7 +46,11 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def _route(t: torch.Tensor, fn: str) -> str:
+def _route(t: torch.Tensor, fn: str, fake: bool = False) -> str:
+    """``cuda`` (the kernel), ``cpu`` (the plain version) or, where the
+    entry point has one and ``t`` holds no data, ``fake``."""
+    if fake and build.is_fake(t):
+        return "fake"
     kind = t.device.type
     if kind not in ("cuda", "cpu"):
         raise ValueError(f"{fn}: no kernel or plain version for device {t.device}")
@@ -81,10 +97,17 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
 ) -> torch.Tensor:
     """Grouped-query attention, q (B, Hq, Sq, D), k/v (B, Hkv, Sk, D) (K4)."""
-    if _route(q, "flash_attention") == "cuda":
+    if isinstance(q, DTensor):
+        return sharded.flash_attention(q, k, v, causal)
+    route = _route(q, "flash_attention", fake=True)
+    if route == "cuda":
         if build.wants_grad(q, k, v):
             return FlashAttentionFn.apply(q, k, v, causal)
         return flash_attention_cuda(q, k, v, causal)
+    if route == "fake":
+        if build.wants_grad(q, k, v):
+            return FakeFlashAttentionFn.apply(q, k, v, causal)
+        return flash_attention_fake(q, k, v, causal)
     return flash_attention_plain(q, k, v, causal)
 
 
@@ -107,8 +130,15 @@ def wkv6(
     grad = build.wants_grad(r, k, v, w, u, state)
     if grad and state_out is not None:
         raise ValueError("wkv6: state_out (an update in place) takes no gradient")
-    if _route(r, "wkv6") == "cuda":
+    if isinstance(r, DTensor):
+        return sharded.wkv6(r, k, v, w, u, state, state_out)
+    route = _route(r, "wkv6", fake=True)
+    if route == "cuda":
         if grad:
             return Wkv6Fn.apply(r, k, v, w, u, state)
         return wkv6_cuda(r, k, v, w, u, state, state_out=state_out)
+    if route == "fake":
+        if grad:
+            return FakeWkv6Fn.apply(r, k, v, w, u, state)
+        return wkv6_fake(r, k, v, w, u, state, state_out=state_out)
     return wkv6_plain(r, k, v, w, u, state, state_out=state_out)

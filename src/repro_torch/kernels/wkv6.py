@@ -38,6 +38,12 @@ every group of BWD_GROUP chunks at once (``bwd_scratch_sizes``);
 ``wkv6_bwd_plain`` is the reverse recurrence in plain PyTorch.
 ``wkv6_cuda`` itself raises on inputs that want a gradient: its outputs
 would have none (and ``u`` reaches the kernel as a detached float32 copy).
+
+``wkv6_cost`` and ``wkv6_bwd_cost`` give the bytes and operations of a
+call (the bounds of ``chip_smoke.py`` and the dry run's counts);
+``wkv6_fake`` and ``FakeWkv6Fn`` are the fake route for fake or meta
+tensors: the outputs' shapes and dtypes, nothing launched, the cost
+recorded in ``build.FAKE_COSTS``.
 """
 from __future__ import annotations
 
@@ -384,3 +390,59 @@ class Wkv6Fn(torch.autograd.Function):
             dy = torch.zeros_like(r)
         dr, dk, dv, dw, du, ds0 = wkv6_bwd_cuda(r, k, v, w, u, state, dy, dstate)
         return dr, dk, dv, dw, du, (None if state is None else ds0.to(state.dtype))
+
+
+# ----------------------------------------------------------------------
+# cost formulas and the fake route
+# ----------------------------------------------------------------------
+def wkv6_cost(B: int, H: int, T: int, D: int, itemsize: int,
+              u_itemsize: int) -> Tuple[int, int]:
+    """(bytes, operations) of one forward call: r, k, v, w read and y
+    written, u read, the float32 state read and written; 7 D^2 operations
+    a head and step (the k v^T outer product, the u term, r's product,
+    the decay and the state update)."""
+    nbytes = 5 * B * H * T * D * itemsize + H * D * u_itemsize + 2 * B * H * D * D * 4
+    return nbytes, 7 * B * H * T * D * D
+
+
+def wkv6_bwd_cost(B: int, H: int, T: int, D: int, itemsize: int) -> Tuple[int, int]:
+    """(bytes, operations) of one backward call: the forward recurrence
+    again, G's recurrence, and dr, dk, dv, dw (3 + 3 + 4 * 2 = 14 D^2 a
+    head and step); r, k, v, w, dy read and dr, dk, dv, dw written, u read
+    and du written in float32."""
+    n = B * H * T
+    return 9 * n * D * itemsize + 2 * H * D * 4, 14 * n * D * D
+
+
+def wkv6_fake(r, k, v, w, u, state=None, *, state_out=None):
+    """The fake route of the forward kernel: y as ``_y_buffer`` gives it
+    and the final state (``state_out`` where given), unwritten; the cost
+    goes to ``build.FAKE_COSTS``."""
+    B, H, T, D = r.shape
+    build.record_fake("wkv6", *wkv6_cost(B, H, T, D, r.element_size(), u.element_size()))
+    sout = (torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+            if state_out is None else state_out)
+    return _y_buffer(r), sout
+
+
+class FakeWkv6Fn(torch.autograd.Function):
+    """``Wkv6Fn`` on fake or meta tensors: the same saved inputs and output
+    shapes, both kernels' costs recorded, nothing computed."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        y, s_out = wkv6_fake(r, k, v, w, u, state)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        ctx.set_materialize_grads(False)
+        return y, s_out
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        r, k, v, w, u, state = ctx.saved_tensors
+        B, H, T, D = r.shape
+        build.record_fake("wkv6_bwd", *wkv6_bwd_cost(B, H, T, D, r.element_size()))
+        grads = tuple(_y_buffer(r) for _ in range(4))
+        du = torch.empty(u.shape, dtype=u.dtype, device=u.device)
+        ds0 = None if state is None else torch.empty(state.shape, dtype=state.dtype,
+                                                     device=state.device)
+        return (*grads, du, ds0)

@@ -21,13 +21,17 @@ def _world() -> int:
     return dist.get_world_size()
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
+    """The (16, 16) ("data", "model") mesh, or (2, 16, 16) ("pod", "data",
+    "model") with ``multi_pod``, over a process group of 256 or 512 ranks
+    (the dry run's is ``"fake"``: ``init_process_group("fake",
+    store=FakeStore(), ...)``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     ranks = 512 if multi_pod else 256
     if _world() != ranks:
         raise ValueError(f"a mesh of {ranks} ranks over a world of {_world()}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1, device_type: Optional[str] = None) -> DeviceMesh:

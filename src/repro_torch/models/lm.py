@@ -21,10 +21,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils import checkpoint as ckpt
 
 from ..core.config import resolve_device
-from . import layers, mamba, rwkv
+from . import layers, mamba, partition, rwkv
 from .config import ModelConfig
 from .layers import cdtype
 
@@ -33,7 +35,8 @@ class Params(nn.Module):
     """A tree of weights as a module: each tensor of ``tree`` becomes a
     frozen parameter, each dict a sub-module and each list a
     ``ModuleList``.  Read by name, ``p["wq"]``, as the JAX package reads
-    its pytrees."""
+    its pytrees; a DTensor weight sharded over a batch axis reads as
+    ``partition.gather_for_use`` gathers it."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -46,7 +49,8 @@ class Params(nn.Module):
                 self.register_parameter(name, nn.Parameter(val, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        # a weight sharded over a batch axis is gathered for its use (ZeRO)
+        return partition.gather_for_use(getattr(self, name))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -250,6 +254,26 @@ def _remat(fn: Callable, cfg: ModelConfig, grad: bool) -> Callable:
     return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
 
 
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream between blocks as the sharded step keeps it:
+    a DTensor batch-sharded over the batch axes where it is, replicated
+    over the others (Megatron's layout: each tensor-parallel block
+    starts from replicated activations and ends in one all-reduce).
+    Without this explicit redistribute DTensor lets the stream drift to
+    placements (d_model sharded, partial sums) from which it picks
+    strategies that leave the logits or a block's products as whole
+    partial sums on every rank.  Mesh dims of one rank and plain tensors
+    are left as they are."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    pl = [p if mesh.size(i) == 1
+          else Shard(0) if name in ("pod", "data") and isinstance(p, Shard) and p.dim == 0
+          else Replicate()
+          for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, x.placements))]
+    return x if pl == list(x.placements) else x.redistribute(mesh, pl)
+
+
 def _wants_grad(params: Params) -> bool:
     return torch.is_grad_enabled() and params.trainable()
 
@@ -280,10 +304,37 @@ def _cross_block(cfg: ModelConfig, x, bp, img):
     return x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
 
 
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  On a DTensor table the gather runs through
+    ``local_map``: DTensor's strategy for its backward (``index_put``)
+    fails on some torch builds for a table sharded on its last dim.  Each
+    rank gathers its tokens' rows from the table replicated over the mesh
+    dims that shard the vocab or the tokens, its own slice of d_model
+    where the table is sharded on it; the table's gradient is a partial
+    sum over the mesh dims of more than one rank that shard the tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tab, grad, tok, out = [], [], [], []
+    for i, (tp, kp) in enumerate(zip(table.placements, tokens.placements)):
+        by_batch = isinstance(kp, Shard) and kp.dim == 0
+        by_width = not by_batch and isinstance(tp, Shard) and tp.dim == 1
+        tab.append(Shard(1) if by_width else Replicate())
+        grad.append(Partial() if by_batch and mesh.size(i) > 1 else tab[-1])
+        tok.append(Shard(0) if by_batch else Replicate())
+        out.append(Shard(0) if by_batch else Shard(2) if by_width else Replicate())
+    return local_map(lambda t, k: t[k], out_placements=(tuple(out),),
+                     in_placements=(tuple(tab), tuple(tok)),
+                     in_grad_placements=(tuple(grad), tuple(tok)), redistribute_inputs=True,
+                     device_mesh=mesh)(table, tokens)
+
+
 def _inputs(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]):
     dt = cdtype(cfg)
     if cfg.embed_inputs:
-        return params["embed"].to(dt)[batch["tokens"]]
+        return _embed(params["embed"].to(dt), batch["tokens"])
     return batch["embeddings"].to(dt)
 
 
@@ -297,14 +348,14 @@ def forward(
     (B,n_img_tokens,D)].  Returns logits (B, S, V) in f32 (or the final
     hidden states)."""
     dt = cdtype(cfg)
-    x = _inputs(cfg, params, batch)
+    x = residual(_inputs(cfg, params, batch))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int64, device=x.device).expand(B, S)
     blocks = params["blocks"]
     # each block under the remat policy, as the JAX package's scans are
     # (not the hybrid's shared attention block, as there)
     grad = _wants_grad(params)
-    remat = lambda fn: _remat(fn, cfg, grad)
+    remat = lambda fn: (lambda x: residual(_remat(fn, cfg, grad)(x)))
     if cfg.family == "rwkv6":
         for bp in blocks:
             x = remat(lambda x, bp=bp: rwkv.rwkv_block(bp, cfg, x)[0])(x)
@@ -314,7 +365,7 @@ def forward(
             x = remat(lambda x, bp=bp: mamba.mamba_block(bp, cfg, x)[0])(x)
             if (i + 1) % cfg.attn_every == 0:
                 # the shared attention block (same params every group)
-                x = _self_block(cfg, x, sp, positions)
+                x = residual(_self_block(cfg, x, sp, positions))
     elif cfg.cross_attn_every:
         img = batch["img_embed"].to(dt)
         per = cfg.cross_attn_every - 1
@@ -332,14 +383,59 @@ def forward(
     return logits.to(torch.float32)
 
 
+def _vocab_sharded(logits: torch.Tensor) -> bool:
+    """Is ``logits`` a DTensor sharded on its last (vocab) dim over a mesh
+    dim of more than one rank?"""
+    if not isinstance(logits, DTensor):
+        return False
+    mesh = logits.device_mesh
+    return any(isinstance(p, Shard) and p.dim == logits.ndim - 1 and mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _label_logit(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``logits[..., labels]`` for logits sharded on their vocab dim,
+    through ``local_map``: each rank picks the labels that fall in its
+    slice of the vocab (0 for the others), a partial sum over the mesh
+    dims that shard the vocab.  DTensor's own gather (and its backward's
+    scatter) would replicate the whole vocab of logits on every rank."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    _, offsets = compute_local_shape_and_global_offset(logits.shape, mesh, logits.placements)
+    start = offsets[last]
+    by_vocab = [isinstance(p, Shard) and p.dim == last for p in logits.placements]
+    batch = [isinstance(p, Shard) and p.dim == 0 for p in logits.placements]
+    out = tuple(Partial() if v else Shard(0) if b else Replicate()
+                for v, b in zip(by_vocab, batch))
+    lab = tuple(Shard(0) if b else Replicate() for b in batch)
+
+    def pick(x, lbl):
+        idx = lbl.to(torch.int64) - start
+        inside = (idx >= 0) & (idx < x.shape[-1])
+        got = torch.gather(x, -1, idx.clamp(0, x.shape[-1] - 1)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    return local_map(pick, out_placements=(out,), in_placements=(logits.placements, lab),
+                     redistribute_inputs=True, device_mesh=mesh)(logits, labels)
+
+
 def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]):
     """The masked mean of -log_softmax at the labels: (loss, {"loss",
     "tokens"}).  ``batch`` adds 'labels' (B, S) and optionally
     'loss_mask' (B, S) to ``forward``'s inputs."""
     logits = forward(cfg, params, batch)
     labels = batch["labels"].to(torch.int64)
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    if _vocab_sharded(logits):
+        # DTensor replicates a log_softmax over a sharded dim (a whole
+        # vocab of logits on every rank): the log-likelihood from
+        # reductions DTensor keeps partial, and a gather it masks by shard
+        shifted = logits - logits.detach().amax(-1, keepdim=True)
+        lse = torch.log(torch.exp(shifted).sum(-1))
+        ll = _label_logit(shifted, labels) - lse
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
     mask = batch.get("loss_mask")
     mask = torch.ones_like(ll) if mask is None else mask.to(ll.dtype)
     loss = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
@@ -415,8 +511,9 @@ def decode_step(
     ``kv_start``: a refilled RWKV6, Mamba2-hybrid or cross-attention slot
     keeps the previous occupant's state and cache prefix."""
     dt = cdtype(cfg)
-    x = _inputs(cfg, params, batch)
-    pos = int(state["pos"])
+    x = residual(_inputs(cfg, params, batch))
+    # a host int, or a 0-d tensor that no host reads (the sharded dry run)
+    pos = state["pos"] if isinstance(state["pos"], torch.Tensor) else int(state["pos"])
     blocks = params["blocks"]
     if cfg.family == "rwkv6":
         for i, bp in enumerate(blocks):
@@ -429,10 +526,12 @@ def decode_step(
             )
             for name in ("tm_prev", "cm_prev"):
                 state[name][i].copy_(ns[name])
+            x = residual(x)
     elif cfg.family == "mamba_hybrid":
         sp = params["shared_attn"]
         for i, bp in enumerate(blocks):
             x, h = mamba.mamba_block(bp, cfg, x, state=state["h"][i])
+            x = residual(x)
             state["h"][i].copy_(h)
             if (i + 1) % cfg.attn_every == 0:
                 g = i // cfg.attn_every
@@ -441,7 +540,8 @@ def decode_step(
                     state["k"][g], state["v"][g], pos,
                 )
                 x = x + h
-                x = x + layers.mlp(sp["mlp"], cfg, layers.rms_norm(x, sp["norm2"], cfg.norm_eps))
+                x = residual(
+                    x + layers.mlp(sp["mlp"], cfg, layers.rms_norm(x, sp["norm2"], cfg.norm_eps)))
     elif cfg.cross_attn_every:
         per = cfg.cross_attn_every - 1
         for g, cp in enumerate(params["cross_blocks"]):
@@ -452,14 +552,16 @@ def decode_step(
                     state["k"][i], state["v"][i], pos,
                 )
                 x = x + h
-                x = x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+                x = residual(
+                    x + layers.mlp(bp["mlp"], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps)))
             h, _, _ = layers.decode_attention(
                 cp["attn"], cfg, layers.rms_norm(x, cp["norm1"], cfg.norm_eps),
                 state["xk"][g], state["xv"][g], pos, rope=False, update_cache=False,
                 kv_len=cfg.n_img_tokens, gated=True,
             )
             x = x + h
-            x = x + layers.mlp(cp["mlp"], cfg, layers.rms_norm(x, cp["norm2"], cfg.norm_eps))
+            x = residual(
+                x + layers.mlp(cp["mlp"], cfg, layers.rms_norm(x, cp["norm2"], cfg.norm_eps)))
     else:
         # the FFN is chosen once a step, not looked up in every layer
         ffn, ffn_name = (layers.moe_ffn, "moe") if cfg.moe else (layers.mlp, "mlp")
@@ -470,7 +572,7 @@ def decode_step(
                 state["k"][i], state["v"][i], pos, kv_start=kv_start,
             )
             x = x + h
-            x = x + ffn(bp[ffn_name], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+            x = residual(x + ffn(bp[ffn_name], cfg, layers.rms_norm(x, bp["norm2"], cfg.norm_eps)))
     new_state = dict(state)
     new_state["pos"] = pos + 1
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

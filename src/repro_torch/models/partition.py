@@ -28,7 +28,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 
 class P(tuple):
@@ -232,6 +232,22 @@ class NamedSharding:
                     if entry == name or (isinstance(entry, tuple) and name in entry)]
             out.append(Shard(dims[0]) if dims else Replicate())
         return tuple(out)
+
+
+def gather_for_use(w):
+    """A weight as the step uses it: a DTensor sharded over a batch axis
+    ("pod", "data": the ZeRO sharding of the rules above) comes back
+    replicated over it, an all-gather whose backward reduce-scatters the
+    gradient, as FSDP gathers a weight for its layer; its sharding over
+    "model" stays.  Anything else is returned as it is."""
+    if not isinstance(w, DTensor):
+        return w
+    mesh = w.device_mesh
+    placements = [Replicate() if name in ("pod", "data") and mesh.size(i) > 1 and p.is_shard()
+                  else p for i, (name, p) in enumerate(zip(mesh.mesh_dim_names, w.placements))]
+    if placements == list(w.placements):
+        return w
+    return w.redistribute(mesh, placements)
 
 
 def shardings_from_specs(mesh: DeviceMesh, specs: Any) -> Any:

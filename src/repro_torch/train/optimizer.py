@@ -46,6 +46,16 @@ def _f32_pow(base: float, step: int) -> float:
     return float(np.float32(base) ** np.float32(step))
 
 
+def _one_minus_pow(base: float, step):
+    """``1 - base ** step`` in float32: a float for a host int step, a 0-d
+    float32 tensor for a step held in a tensor (the sharded dry run's
+    state, which no host reads)."""
+    if isinstance(step, torch.Tensor):
+        return 1 - torch.pow(torch.full_like(step, base, dtype=torch.float32),
+                             step.to(torch.float32))
+    return float(np.float32(1) - np.float32(_f32_pow(base, step)))
+
+
 # ----------------------------------------------------------------------
 # AdamW
 # ----------------------------------------------------------------------
@@ -70,8 +80,7 @@ def adamw(
     @torch.no_grad()
     def update(grads: Grads, state: Dict, params: Params) -> Dict:
         step = state["step"] + 1
-        b1t = float(np.float32(1) - np.float32(_f32_pow(b1, step)))
-        b2t = float(np.float32(1) - np.float32(_f32_pow(b2, step)))
+        b1t, b2t = _one_minus_pow(b1, step), _one_minus_pow(b2, step)
         for name, p in params.named_parameters():
             g = grads[name].to(torch.float32)
             m, v, master = state["m"][name], state["v"][name], state["master"][name]
@@ -129,7 +138,10 @@ def adafactor(lr: float = 1e-3, eps: float = 1e-30, clip: float = 1.0,
     @torch.no_grad()
     def update(grads: Grads, state: Dict, params: Params) -> Dict:
         step = state["step"] + 1
-        beta = 1.0 - float(np.float32(step + 1) ** np.float32(-decay))
+        if isinstance(step, torch.Tensor):
+            beta = 1 - torch.pow((step + 1).to(torch.float32), -decay)
+        else:
+            beta = 1.0 - float(np.float32(step + 1) ** np.float32(-decay))
         moments = {}
         for key, members in groups(params).items():
             stacked = _stacked(members)
@@ -143,18 +155,29 @@ def adafactor(lr: float = 1e-3, eps: float = 1e-30, clip: float = 1.0,
                 vr = beta * mom["vr"] + (1 - beta) * g2.mean(dim=-1)
                 vc = beta * mom["vc"] + (1 - beta) * g2.mean(dim=-2)
                 denom = torch.clamp(vr.mean(dim=-1, keepdim=True), min=1e-30)
-                vhat = vr[..., None] * vc[..., None, :] / denom[..., None]
-                u = g / torch.sqrt(vhat + eps)
+                vhat = lambda r, c, d: r[..., None] * c[..., None, :] / d[..., None]
+                if stacked and g.ndim > 2:
+                    # each block's update from its own rows of the moments:
+                    # on DTensors the stacked product may come out sharded
+                    # on the block dim, and picking one block of it would
+                    # gather them all
+                    us = [g[i] / torch.sqrt(vhat(vr[i], vc[i], denom[i]) + eps)
+                          for i in range(len(members))]
+                    u = torch.stack(us)
+                else:
+                    u = g / torch.sqrt(vhat(vr, vc, denom) + eps)
+                    us = list(u) if stacked else [u]
                 moments[key] = {"vr": vr, "vc": vc}
             else:
                 v = beta * mom["v"] + (1 - beta) * g2
                 u = g / torch.sqrt(v + eps)
+                us = list(u) if stacked else [u]
                 moments[key] = {"v": v}
             # update clipping by RMS, over the whole stacked leaf
             rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms / clip, min=1.0)
-            for i, (_, p) in enumerate(members):
-                p.copy_(p.to(torch.float32) - lr * (u[i] if stacked else u))
+            scale = torch.clamp(rms / clip, min=1.0)
+            for (_, p), ui in zip(members, us):
+                p.copy_(p.to(torch.float32) - lr * (ui / scale))
         return {"moments": moments, "step": step}
 
     def state_specs(param_specs: Dict[str, P], params: Params) -> Dict:

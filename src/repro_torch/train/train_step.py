@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..models import lm
 from ..models.config import ModelConfig
@@ -36,6 +37,20 @@ def init_train_state(
     return {"params": params, "opt": opt.init(params), "step": 0}
 
 
+def _microbatch(v: torch.Tensor, n_micro: int, i: int) -> torch.Tensor:
+    """Rows ``[i * B / n_micro, (i + 1) * B / n_micro)`` of the batch, as
+    the JAX package's ``reshape(n_micro, B // n_micro, ...)`` and scan take
+    them.  A DTensor batch sharded on its batch dim cannot be split so
+    when the ranks do not divide ``n_micro`` (DTensor has no strategy for
+    that view): it is gathered (an explicit redistribute to replicated),
+    split, and microbatch i sharded again as the batch was."""
+    if isinstance(v, DTensor) and any(p.is_shard() for p in v.placements):
+        whole = v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim)
+        part = whole.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+        return part.redistribute(v.device_mesh, v.placements)
+    return v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
+
+
 def make_train_step(cfg: ModelConfig):
     opt = get_optimizer(cfg.optimizer)
     gdt = getattr(torch, cfg.grad_dtype)
@@ -45,11 +60,11 @@ def make_train_step(cfg: ModelConfig):
         n_micro = cfg.microbatches
         named = list(params.named_parameters())
         leaves = [p for _, p in named]
-        acc = [torch.zeros(p.shape, dtype=gdt, device=p.device) for p in leaves]
+        # zeros_like: a DTensor weight's accumulator is a DTensor of its placements
+        acc = [torch.zeros_like(p, dtype=gdt) for p in leaves]
         losses = []
         for i in range(n_micro):
-            mb = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])[i]
-                  for k, v in batch.items()}
+            mb = {k: _microbatch(v, n_micro, i) for k, v in batch.items()}
             loss, _ = lm.loss_fn(cfg, params, mb)
             grads = torch.autograd.grad(loss, leaves)
             with torch.no_grad():

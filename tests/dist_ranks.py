@@ -1,12 +1,14 @@
-"""Child processes of the multi-rank tests of ``repro_torch.dist`` and
-``repro_torch.models.partition`` (tests/test_torch_dist.py,
-tests/test_torch_partition.py), and the seeded inputs both packages get.
+"""Child processes of the multi-rank tests of ``repro_torch.dist``,
+``repro_torch.models.partition`` and the model's sharded step
+(tests/test_torch_dist.py, tests/test_torch_partition.py,
+tests/test_torch_dryrun.py), and the seeded inputs both packages get.
 
-    python tests/dist_ranks.py ops|reshard RANK WORLD WORKDIR
+    python tests/dist_ranks.py ops|reshard|sharded RANK WORLD WORKDIR
     python tests/dist_ranks.py jax WORKDIR
 
-``ops`` and ``reshard`` run one gloo rank of a world of WORLD, joined
-through a ``FileStore`` in WORKDIR (no port), and write the rank's
+``ops``, ``reshard`` and ``sharded`` run one gloo rank of a world of WORLD, joined
+through a ``FileStore`` in WORKDIR (no port) on the loopback device,
+each collective bounded by ``GLOO_TIMEOUT``, and write the rank's
 outputs to ``WORKDIR/<scenario>-<rank>.pkl``; ``jax`` computes the JAX
 package's ops on as many forced host devices as ``XLA_FLAGS`` gives it
 and writes ``WORKDIR/jax.npz``.  The file is not named ``test_*``, so
@@ -18,6 +20,8 @@ import os
 import pickle
 import subprocess
 import sys
+import time
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +33,14 @@ TPCH_SF = 0.002
 #: q21; anti joins in q16, q21, q22
 TPCH_QUERIES = ("q1", "q4", "q13", "q16", "q18", "q21", "q22")
 PIPE_LAYERS, PIPE_D = 8, 16
+#: the bound on each gloo collective of these tests, in process and in the
+#: child ranks, and on all the child processes of one ``run_ranks`` together
+GLOO_TIMEOUT = timedelta(seconds=60)
+RANKS_DEADLINE_S = 120
+# gloo binds to the loopback device: the address the host name resolves
+# to may not be reachable, and a rank that cannot connect would wait out
+# its timeout (children inherit the variable)
+os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
 
 
 def inputs() -> dict:
@@ -113,7 +125,8 @@ def _join(rank: int, world: int, workdir: str):
 
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(workdir, "store"), world)
-    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=GLOO_TIMEOUT)
     return torch, dist
 
 
@@ -231,6 +244,130 @@ def run_reshard(rank: int, world: int, workdir: str) -> dict:
     return out
 
 
+def sharded_configs() -> dict:
+    """The reduced configs of the sharded step on a (2, 2) mesh."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get
+    from repro_torch.models.config import reduced
+
+    # GQA, 8 query heads on 2 kv heads, the kv projections replicated:
+    # each "model" rank slices the kv head its 4 query heads read
+    qwen = reduced(get("qwen3-14b"), n_heads=8, n_kv_heads=2, kv_shard="replicated",
+                   microbatches=2)
+    # one kv head: its projection's width is sharded over "model", which
+    # does not divide the heads, so the split into heads gathers it first
+    qwen_kv1 = reduced(get("qwen3-14b"), n_heads=8, n_kv_heads=1)
+    # 4 experts over "model", each token's 2 experts; capacity for every
+    # token on each expert, so no token drops, sharded (each data rank's
+    # tokens) or not
+    dbrx = reduced(get("dbrx-132b"), microbatches=2)
+    dbrx = dataclasses.replace(dbrx, moe=dataclasses.replace(
+        dbrx.moe, capacity_factor=dbrx.moe.n_experts / dbrx.moe.top_k))
+    # K5 on batch-sharded inputs: u's gradient sums over the data ranks
+    rwkv = reduced(get("rwkv6-7b"), microbatches=2)
+    return {"qwen3": qwen, "qwen3_kv1": qwen_kv1, "dbrx": dbrx, "rwkv6": rwkv}
+
+
+#: the sharded step's batch (each microbatch 2 rows a data rank: DTensor
+#: fails on views of a dim sharded unevenly over "model"), and its decode
+#: cache and position: the cache is long enough for
+#: ``decode_state_specs`` to shard its sequence over "model", and the
+#: position falls in the second rank's half
+SHARD_B, SHARD_S, SHARD_SMAX, SHARD_POS = 8, 16, 4096, 2100
+
+
+def place(tree, mesh, specs):
+    """``tree`` (weights, a batch or a state) as DTensors placed by ``specs``."""
+    from repro_torch.models import lm, partition
+
+    shardings = partition.shardings_from_specs(mesh, specs)
+    if isinstance(tree, lm.Params):
+        named = {n: partition.distribute(p.detach(), shardings[n])
+                 for n, p in tree.named_parameters()}
+        return lm.Params(lm.tree_from_names(named))
+    return partition.distribute_tree(tree, shardings)
+
+
+def run_sharded(rank: int, world: int, workdir: str) -> dict:
+    """The prefill, one train step (two microbatches) and one decode step
+    at a 0-d tensor position on a (2, 2) ("data", "model") mesh of
+    DTensors placed by the partition specs, each as a whole tensor; rank
+    0 adds the unsharded results on the same inputs."""
+    torch, dist = _join(rank, world, workdir)
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm, partition
+    from repro_torch.train.optimizer import get_optimizer
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    mesh = make_host_mesh(2, device_type="cpu")
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(0, 256, (SHARD_B, SHARD_S)), dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    dbatch = place(batch, mesh, partition.batch_specs(mesh, batch))
+    step_batch = {"tokens": tokens[:, :1]}
+    dstep_batch = place(step_batch, mesh, partition.batch_specs(mesh, step_batch))
+    gen = lambda: torch.Generator("cpu").manual_seed(2)
+    plain = rank == 0
+    out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
+    for name, cfg in sharded_configs().items():
+        res = out[name] = {}
+        params = lm.init_params(cfg, gen(), device="cpu")
+        pspecs = partition.param_specs(params, cfg)
+        with implicit_replication():
+            res["prefill"] = lm.prefill(cfg, place(params, mesh, pspecs), dbatch).full_tensor()
+        if plain:
+            res["prefill_plain"] = lm.prefill(cfg, params, batch)
+        if name == "qwen3_kv1":
+            state = lm.init_decode_state(cfg, SHARD_B, SHARD_SMAX, device="cpu")
+            g = torch.Generator("cpu").manual_seed(3)
+            for key in ("k", "v"):  # a cache as a prefill would leave it
+                state[key].normal_(generator=g)
+            before = {key: state[key].clone() for key in ("k", "v")}
+            dstate = dict(state, k=state["k"].clone(), v=state["v"].clone(),
+                          pos=torch.tensor(SHARD_POS, dtype=torch.int32))
+            dspecs = partition.decode_state_specs(mesh, dstate)
+            res["cache_spec"] = tuple(dspecs["k"])
+            dstate = place(dstate, mesh, dspecs)
+            with implicit_replication():
+                logits, new = lm.decode_step(cfg, place(params, mesh, pspecs), dstate,
+                                             dstep_batch)
+            res["decode"] = logits.full_tensor()
+            res["pos"] = int(new["pos"].full_tensor())
+            for key in ("k", "v"):
+                full = dstate[key].full_tensor()
+                res[f"slot_{key}"] = full[:, :, SHARD_POS].clone()
+                full[:, :, SHARD_POS] = before[key][:, :, SHARD_POS]
+                res[f"rest_{key}_unchanged"] = torch.equal(full, before[key])
+            if plain:
+                state["pos"] = SHARD_POS
+                logits, new = lm.decode_step(cfg, params, state, step_batch)
+                res["decode_plain"], res["pos_plain"] = logits, new["pos"]
+                for key in ("k", "v"):
+                    res[f"slot_{key}_plain"] = state[key][:, :, SHARD_POS].clone()
+            continue
+        opt = get_optimizer(cfg.optimizer)
+        specs = {"params": pspecs, "opt": opt.state_specs(pspecs, params), "step": partition.P()}
+        dstate = init_train_state(cfg, gen(), device="cpu")
+        dstate = {"params": place(dstate["params"], mesh, pspecs),
+                  "opt": place(dstate["opt"], mesh, specs["opt"]), "step": 0}
+        dstate["params"].requires_grad_(True)
+        step = make_train_step(cfg)
+        with implicit_replication():
+            dstate, metrics = step(dstate, dbatch)
+        res["metrics"] = {k: metrics[k].full_tensor() for k in ("loss", "grad_norm")}
+        res["params"] = {n: p.full_tensor().detach()
+                         for n, p in dstate["params"].named_parameters()}
+        if plain:
+            state, metrics = step(init_train_state(cfg, gen(), device="cpu"), batch)
+            res["metrics_plain"] = {k: metrics[k] for k in ("loss", "grad_norm")}
+            res["params_plain"] = {n: p.detach() for n, p in state["params"].named_parameters()}
+    dist.destroy_process_group()
+    return out
+
+
 # ----------------------------------------------------------------------
 # the parent's side
 # ----------------------------------------------------------------------
@@ -244,14 +381,16 @@ def _spawn(args, env_extra=None):
 
 def run_ranks(scenario: str, workdir: Path, world: int = WORLD, extra=()):
     """Start ``world`` gloo ranks of ``scenario`` (and any ``extra``
-    processes, ``(args, env)``), wait for all, fail on any non-zero exit,
-    and return each rank's outputs."""
+    processes, ``(args, env)``), wait for all of them together for at most
+    ``RANKS_DEADLINE_S``, fail on any non-zero exit or on the deadline, and
+    return each rank's outputs."""
+    deadline = time.monotonic() + RANKS_DEADLINE_S
     procs = [_spawn([scenario, str(r), str(world), str(workdir)]) for r in range(world)]
     procs += [_spawn(args, env) for args, env in extra]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=300)[0])
+            logs.append(p.communicate(timeout=max(0.1, deadline - time.monotonic()))[0])
     finally:
         for p in procs:
             if p.poll() is None:
@@ -281,7 +420,8 @@ def main(argv) -> int:
         run_jax(argv[1])
         return 0
     scenario, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
-    out = {"ops": run_ops, "reshard": run_reshard}[scenario](rank, world, workdir)
+    out = {"ops": run_ops, "reshard": run_reshard, "sharded": run_sharded}[scenario](
+        rank, world, workdir)
     with open(os.path.join(workdir, f"{scenario}-{rank}.pkl"), "wb") as f:
         pickle.dump(_to_numpy(out), f)
     return 0

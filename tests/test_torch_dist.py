@@ -10,7 +10,8 @@
   ``membership``, since the reference's one-device mask fails under this
   jax; ``quantize``'s codes and scales equal the JAX package's.
 - Four gloo ranks in child processes (tests/dist_ranks.py), started once
-  for the module beside one JAX process on four forced host devices: the
+  for the session (xdist workers share them through a file lock) beside
+  one JAX process on four forced host devices: the
   repartition's slot arrays, ``valid``, ``dropped`` and the semi mask
   equal the JAX package's exactly, float32 group-by sums within 1e-6 of
   the largest sum (a sum that cancels can be far smaller than its
@@ -18,6 +19,7 @@
   queries at SF 0.002 equal ``"off"`` (ints exact, floats rtol 1e-12);
   ``compressed_mean`` within ``0.02 * max(scale, 1)`` of the numpy mean.
 """
+import os
 import pickle
 import sys
 from pathlib import Path
@@ -25,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +69,7 @@ def _config():
 @pytest.fixture
 def mesh1():
     """A one-rank gloo group, torn down after the test."""
-    mesh = dframe.init_local("cpu")
+    mesh = dframe.init_local("cpu", timeout=dist_ranks.GLOO_TIMEOUT)
     try:
         yield mesh
     finally:
@@ -305,7 +308,7 @@ def test_force_without_a_group_raises():
 def test_init_local_refuses_a_second_group(mesh1):
     assert mesh1.size == 1 and mesh1.rank == 0 and mesh1.shape == {"data": 1}
     with pytest.raises(dframe.ProcessGroupError):
-        dframe.init_local("cpu")
+        dframe.init_local("cpu", timeout=dist_ranks.GLOO_TIMEOUT)
 
 
 @pytest.fixture(scope="module")
@@ -370,13 +373,26 @@ def test_streamed_route_reaches_the_hooks(mesh1, tpch_port):
 @pytest.fixture(scope="module")
 def four(tmp_path_factory, tpch_small):
     """The port on four gloo ranks and the JAX package on four forced host
-    devices, on the same seeded inputs, run once for the module."""
-    workdir = tmp_path_factory.mktemp("dist4")
-    with open(workdir / "tables.pkl", "wb") as f:
-        pickle.dump(tpch_small[0], f)
-    jax_env = {"XLA_FLAGS": f"--xla_force_host_platform_device_count={dist_ranks.WORLD}",
-               "JAX_PLATFORMS": "cpu"}
-    ranks = dist_ranks.run_ranks("ops", workdir, extra=[(["jax", str(workdir)], jax_env)])
+    devices, on the same seeded inputs, run once for the session: under
+    xdist the first worker to take the lock runs them into the session's
+    shared temp directory and the others read its outputs."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent  # shared by the session's workers
+    workdir = root / "dist4"
+    with FileLock(str(root / "dist4.lock")):
+        if not (workdir / "done").exists():
+            workdir.mkdir(exist_ok=True)
+            with open(workdir / "tables.pkl", "wb") as f:
+                pickle.dump(tpch_small[0], f)
+            jax_env = {"XLA_FLAGS": f"--xla_force_host_platform_device_count={dist_ranks.WORLD}",
+                       "JAX_PLATFORMS": "cpu"}
+            dist_ranks.run_ranks("ops", workdir, extra=[(["jax", str(workdir)], jax_env)])
+            (workdir / "done").touch()
+    ranks = []
+    for r in range(dist_ranks.WORLD):
+        with open(workdir / f"ops-{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
     ref = dict(np.load(workdir / "jax.npz"))
     return ranks, ref, dist_ranks.inputs()
 

@@ -138,7 +138,7 @@ def test_optimizer_state_specs_equal_the_reference(arch, opt):
 
 
 def test_placements_of_specs():
-    mesh = dframe.init_local("cpu")
+    mesh = dframe.init_local("cpu", timeout=dist_ranks.GLOO_TIMEOUT)
     try:
         host = port_mesh.make_host_mesh(1, device_type="cpu")
         assert host.mesh_dim_names == ("data", "model") and tuple(host.mesh.shape) == (1, 1)
@@ -176,7 +176,7 @@ def _specs(cfg, params):
 def test_restore_with_shardings_on_one_rank(tmp_path):
     cfg, state = _train_state(3)
     checkpoint.save(state, str(tmp_path), 3)
-    dframe.init_local("cpu")
+    dframe.init_local("cpu", timeout=dist_ranks.GLOO_TIMEOUT)
     try:
         host = port_mesh.make_host_mesh(1, device_type="cpu")
         _, like = _train_state(99)

@@ -163,7 +163,8 @@ NAMED_MODULES = (
     "core/pipeline.py", "sql/stream.py", "serve/sql.py",
     "serve/admission.py", "serve/stats.py", "launch/run_capped.py",
     "dist/dframe.py", "dist/compression.py", "dist/pipeline.py", "launch/mesh.py",
-    "models/partition.py",
+    "models/partition.py", "launch/shapes.py", "launch/dryrun.py", "launch/hlo_analysis.py",
+    "kernels/sharded.py",
 )
 
 
