@@ -15,7 +15,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    where segments differ in magnitude by 2^100; the substring find and
    its fused exists_before at row widths 1 to 128, base pointers 0 to 15
    bytes off alignment and pattern lengths 0 to L + 1; the WKV recurrence
-   on strided inputs with its state written in place; the backward
+   on strided inputs with its state written in place, in both forms (the
+   serial kernel and the chunked one, forced at T 1 to 200 across its
+   chunks, w down to 1e-12, each launched twice to repeat bit for bit,
+   and chained over 2 chunks and a remainder against one call); the backward
    kernels of K4 (bf16, and float32 in split TF32, on the tensor cores)
    and K5, from the forward kernels' log-sum-exp, at head dims 16 to 128,
    groups 1, 5 and 8, ragged, causal-offset and non-causal shapes, K4's
@@ -30,8 +33,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16 attention of the later families' prefills (Kimi-K2: GQA group 8
    at head dim 112; Zamba2's shared block: group 1 at 80; the vision
    model's cross-attention: non-causal, 4096 queries over 1600 keys;
-   MusicGen: head dim 64), RWKV6-7B's decode recurrence and its prefill
-   shape, the backward kernels at the training shapes of phase 8b, their
+   MusicGen: head dim 64), RWKV6-7B's decode recurrence (the serial
+   form) and its training and prefill shape, T 4096 (the chunked form,
+   and the serial one beside it), the backward kernels at the training shapes of phase 8b, their
    device times summed over every kernel of a call), with times and
    bounds;
 3. the TPC-H main path: tables generated from ``--seed`` at ``--sf``,
@@ -157,7 +161,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Qwen3-14B (4 layers) and RWKV6-7B (8 layers) at their published
    widths, 3 adamw steps of 4 x 4096 and 8 x 4096 tokens curated on the
    card (K2's find and K1 in ``curate``), K4's and K5's forward and
-   backward launches of a step asserted, step time, tokens per second,
+   backward launches of a step asserted (K5's forward in the form of its
+   T: at 4096 the chunked one), step time, tokens per second,
    peak memory and a profiled step;
 13. (run after phase 8) the sharded dry run and the step on DTensors:
    (a) ``python -m repro_torch.launch.dryrun`` in child processes for
@@ -168,8 +173,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    a (1, 1) mesh, every weight, optimizer leaf and batch a DTensor placed
    by its spec, at full width and 2 layers: a Qwen3-14B train step of 4 x
    4096 tokens and a prefill, and an RWKV6-7B prefill, each bit-equal to
-   the unsharded step's with equal K4, K4-bwd and K5 launches (K4 and K5
-   run on the local shards through ``local_map``); (c) ``run_cell(...,
+   the unsharded step's with equal K4, K4-bwd and K5 launches (K4 and K5,
+   at T 4096 K5's chunked form, run on the local shards through
+   ``local_map``); (c) ``run_cell(...,
    mesh=)`` predicts the sharded train step's peak, printed beside
    ``torch.cuda.max_memory_allocated`` and their ratio, which must lie
    in [0.8, 1.25];
@@ -203,6 +209,7 @@ Needs a CUDA device; imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -215,14 +222,18 @@ ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) for the
 # bound each kernel is held to: device-memory bandwidth; the
-# non-tensor-core float32 rate, for the segment sum, the substring search,
-# the tuple hash and the WKV recurrence (the table has no integer, float64
-# or int64 entry; those kernels are bounded by bytes either way); the
-# bf16 tensor-core rate, for attention on bf16 inputs; and the TF32
-# tensor-core rate, for attention on float32 inputs, which takes three
-# TF32 products for each float32-accurate one (split TF32: a_lo b_hi +
-# a_hi b_lo + a_hi b_hi), an effective 165 TFLOP/s (the CUDA cores' 67
-# TFLOP/s bound is reported beside it).
+# non-tensor-core float32 rate, for the segment sum, the substring search
+# and the tuple hash (the table has no integer, float64 or int64 entry;
+# those kernels are bounded by bytes either way); the bf16 tensor-core
+# rate, for attention on bf16 inputs; and the TF32 tensor-core rate, for
+# the WKV recurrence on bf16 inputs, forward and backward (its products
+# of bf16 operands and float32 decays run on the tensor cores in TF32, as
+# the chunked forward runs them: bound by bytes at RWKV6-7B's shapes),
+# and for attention on float32 inputs, which takes three TF32 products for
+# each float32-accurate one (split TF32: a_lo b_hi + a_hi b_lo + a_hi
+# b_hi), an effective 165 TFLOP/s.  Where the rate is a tensor-core one
+# (K5, K4 on float32 inputs), the bound at the CUDA cores' 67 TFLOP/s is
+# reported beside it (``bound_cuda_cores_ms``).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
@@ -314,7 +325,13 @@ STORE_YEAR = 2000
 BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90", "wkv6_bwd")
 
 
+#: the script's start, which each phase's header line counts from
+T_START = time.perf_counter()
+
+
 def log(*parts) -> None:
+    if parts and str(parts[0]).startswith("phase "):
+        parts = (*parts, f"[at {time.perf_counter() - T_START:.1f} s]")
     print(*parts, flush=True)
 
 
@@ -341,14 +358,16 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel_key: str, reps: int, per_call: bool = False) -> float:
+def device_ms(torch, fn, kernel_key: str, reps: int, per_call: bool = False,
+              breakdown=None) -> float:
     """Mean device time of one launch of the kernel whose name holds
     ``kernel_key``, from ``torch.profiler`` over ``reps`` calls of ``fn``:
     the kernel alone, where ``cuda_ms`` also sees the host time of a
     wrapper that cannot keep the card busy.  With ``per_call``, the time of
     one call of a wrapper that launches several such kernels, once each:
     the sum of each kernel's mean launch, which a session that loses a
-    first device event (section 7 of PERF.md) does not skew."""
+    first device event (section 7 of PERF.md) does not skew; a dict
+    passed as ``breakdown`` receives each kernel's mean launch by name."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -364,6 +383,9 @@ def device_ms(torch, fn, kernel_key: str, reps: int, per_call: bool = False) -> 
                 fn()
             torch.cuda.synchronize()
         hits = [(ms, n) for key, (ms, n) in device_busy(prof)[1].items() if kernel_key in key]
+        if hits and breakdown is not None:
+            breakdown.update({key: ms / n for key, (ms, n) in device_busy(prof)[1].items()
+                              if kernel_key in key})
         if hits and per_call:
             return sum(ms / n for ms, n in hits)
         if hits:
@@ -858,19 +880,34 @@ def check_attention(torch, q, k, v, causal: bool, label: str) -> float:
     return err
 
 
-def check_wkv6(torch, args, label: str) -> float:
-    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+def wkv6_call(form=None):
+    """K5's wrapper (the form of the call's T), or the launcher of the
+    forward form ``form`` at any T."""
+    from repro_torch.kernels.wkv6 import _wkv6_launch, wkv6_cuda
 
-    y, s = wkv6_cuda(*args)
+    return wkv6_cuda if form is None else functools.partial(_wkv6_launch, form)
+
+
+def check_wkv6(torch, args, label: str, form=None) -> float:
+    """K5 (the form ``wkv6_form`` picks by T, or ``form``) against its plain
+    version on the same inputs, launched twice: the second launch must
+    give the same bits."""
+    from repro_torch.kernels.wkv6 import wkv6_form, wkv6_plain
+
+    call = wkv6_call(form)
+    y, s = call(*args)
+    y2, s2 = call(*args)
     y_want, s_want = wkv6_plain(*args)
     torch.cuda.synchronize()
     tol = WKV6_TOL[str(args[0].dtype).replace("torch.", "")]
     err_y, ok_y = allclose_err(torch, y, y_want, tol)
     err_s, ok_s = allclose_err(torch, s, s_want, tol)
-    log(f"  wkv6 {label}: r {tuple(args[0].shape)} {args[0].dtype} "
-        f"state={'yes' if args[5] is not None else 'no'} max_abs_err y={err_y!r} "
-        f"state={err_s!r} (tol {tol}) {'ok' if ok_y and ok_s else 'MISMATCH'}")
-    if not (ok_y and ok_s):
+    again = torch.equal(y, y2) and torch.equal(s, s2)
+    log(f"  {form or wkv6_form(args[0].shape[2])} {label}: r {tuple(args[0].shape)} "
+        f"{args[0].dtype} state={'yes' if args[5] is not None else 'no'} max_abs_err "
+        f"y={err_y!r} state={err_s!r} (tol {tol}) {'ok' if ok_y and ok_s else 'MISMATCH'}, "
+        f"second launch {'bit-equal' if again else 'DIFFERS'}")
+    if not (ok_y and ok_s and again):
         raise AssertionError(f"wkv6 kernel disagrees with its plain version at {label}")
     return max(err_y, err_s)
 
@@ -897,22 +934,24 @@ def wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state: bool, strided: b
     return [r, k, v, w, u, s0]
 
 
-def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D) -> float:
-    """K5 on strided inputs with ``state_out``: aliased to the state (the
-    decode step's form) and a separate buffer, against the plain version
-    on the same inputs; the state passed without ``state_out`` is left
-    as it was."""
-    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D, form=None, w_low=None) -> float:
+    """K5 (the form of T, or ``form``) on strided inputs with ``state_out``:
+    aliased to the state (the decode step's form) and a separate buffer,
+    against the plain version on the same inputs; the state passed
+    without ``state_out`` is left as it was."""
+    from repro_torch.kernels.wkv6 import wkv6_plain
 
-    r, k, v, w, u, s0 = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, True, strided=True)
+    call = wkv6_call(form)
+    r, k, v, w, u, s0 = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, True, strided=True,
+                                    w_low=w_low)
     tol = WKV6_TOL[str(dtype).replace("torch.", "")]
     y_want, s_want = wkv6_plain(r, k, v, w, u, s0)
     kept = s0.clone()
-    y_pure, s_pure = wkv6_cuda(r, k, v, w, u, s0)
+    y_pure, s_pure = call(r, k, v, w, u, s0)
     alias = s0.clone()
-    y_alias, s_alias = wkv6_cuda(r, k, v, w, u, alias, state_out=alias)
+    y_alias, s_alias = call(r, k, v, w, u, alias, state_out=alias)
     other = torch.full_like(s0, float("nan"))
-    _, s_other = wkv6_cuda(r, k, v, w, u, s0, state_out=other)
+    _, s_other = call(r, k, v, w, u, s0, state_out=other)
     torch.cuda.synchronize()
     errs, ok = [], torch.equal(s0, kept) and s_alias is alias and s_other is other
     for got, want in ((y_pure, y_want), (s_pure, s_want), (y_alias, y_want),
@@ -920,8 +959,8 @@ def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D) -> float:
         err, fine = allclose_err(torch, got, want, tol)
         errs.append(err)
         ok = ok and fine
-    log(f"  wkv6 strided, state_out aliased and apart: r {tuple(r.shape)} strides "
-        f"{r.stride()} {dtype} max_abs_err={max(errs)!r} (tol {tol}) "
+    log(f"  {form or 'wkv6'} strided, state_out aliased and apart: r {tuple(r.shape)} strides "
+        f"{r.stride()} {dtype} w from {w_low or 0.7} max_abs_err={max(errs)!r} (tol {tol}) "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         raise AssertionError("wkv6 kernel with strided inputs or state_out disagrees")
@@ -929,7 +968,7 @@ def check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D) -> float:
 
 
 def lm_edge_phase(torch, dev) -> None:
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.wkv6 import CHUNK, wkv6_cuda
 
     log("phase 2a: edge shapes of flash_attention (K4: bf16, and f32 in split TF32, on the "
         "tensor cores) and wkv6 (K5)")
@@ -980,6 +1019,40 @@ def lm_edge_phase(torch, dev) -> None:
             f"y={err_y!r} state={err_s!r} {'ok' if ok_y and ok_s else 'MISMATCH'}")
         if not (ok_y and ok_s):
             raise AssertionError("wkv6 kernel: two chained calls differ from one")
+        # the chunked form (csrc/wkv6_chunked.cu), forced at any T: one
+        # step, ragged across its chunks of 64 and sub-chunks of 16 steps,
+        # D 16 to 128, w down to 1e-12, with and without a state; strided
+        # with state_out aliased and apart; 2 chunks and a remainder chained
+        # through the state against one call
+        for B, H, T, D in [(1, 2, 1, 16), (2, 3, 63, 32), (1, 2, 65, 64), (2, 2, 200, 128),
+                           (1, 3, 129, 16), (3, 5, 7, 64)]:
+            for with_state in (False, True):
+                args = wkv6_inputs(torch, rng, dev, dtype, B, H, T, D, with_state, w_low=1e-12)
+                check_wkv6(torch, args, "edge, w from 1e-12", form="wkv6_chunked")
+        for B, H, T, D in [(1, 2, 1, 16), (4, 64, 70, 64), (2, 4, 131, 64), (1, 2, 200, 128)]:
+            check_wkv6_in_place(torch, rng, dev, dtype, B, H, T, D, form="wkv6_chunked",
+                                w_low=1e-12)
+        # a state 4 bytes off 16-byte alignment (the scan's one-element path)
+        args = wkv6_inputs(torch, rng, dev, dtype, 2, 3, 150, 32, True, w_low=1e-12)
+        buf = torch.zeros(args[5].numel() + 1, device=dev)
+        args[5] = buf[1:].view_as(args[5]).copy_(args[5])
+        check_wkv6(torch, args, "edge, state off alignment", form="wkv6_chunked")
+        T = 2 * CHUNK + 37
+        r, k, v, w, u, s0 = wkv6_inputs(torch, rng, dev, dtype, 2, 4, T, 64, True, strided=True,
+                                        w_low=1e-12)
+        chunked = wkv6_call("wkv6_chunked")
+        y, s = chunked(r, k, v, w, u, s0)
+        state, ys = s0, []
+        for a, b in ((0, CHUNK), (CHUNK, 2 * CHUNK), (2 * CHUNK, T)):
+            y_p, state = chunked(*(t[:, :, a:b] for t in (r, k, v, w)), u, state)
+            ys.append(y_p)
+        err_y, ok_y = allclose_err(torch, torch.cat(ys, 2), y, tol)
+        err_s, ok_s = allclose_err(torch, state, s, tol)
+        log(f"  wkv6_chunked chained {CHUNK} + {CHUNK} + {T - 2 * CHUNK} steps vs {T} in one "
+            f"call, {dtype}: max_abs_err y={err_y!r} state={err_s!r} "
+            f"{'ok' if ok_y and ok_s else 'MISMATCH'}")
+        if not (ok_y and ok_s):
+            raise AssertionError("wkv6_chunked kernel: three chained calls differ from one")
 
 
 # The backward kernels against their plain versions on the same inputs:
@@ -1078,7 +1151,7 @@ def check_autograd_functions(torch, rng, dev) -> None:
     the bare kernel wrappers refuse such inputs."""
     from repro_torch.kernels import build, ops
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.wkv6 import wkv6_cuda
+    from repro_torch.kernels.wkv6 import CHUNKED_MIN_T, wkv6_cuda
 
     def both(*shape, low=None):
         a = rng.uniform(low, 0.999, shape) if low is not None else rng.normal(size=shape) * 0.5
@@ -1108,6 +1181,11 @@ def check_autograd_functions(torch, rng, dev) -> None:
     r, kk, vv = (both(2, 3, 21, 32) for _ in range(3))
     w, u, s0 = both(2, 3, 21, 32, low=0.7), both(3, 32), both(2, 3, 32, 32)
     compare("ops.wkv6", ops.wkv6, [r, kk, vv, w, u, s0], ("wkv6", "wkv6_bwd"))
+    # the chunked forward under Wkv6Fn (T past CHUNKED_MIN_T)
+    T = CHUNKED_MIN_T + 22
+    args = [both(2, 3, T, 32) for _ in range(3)] + [both(2, 3, T, 32, low=0.7), both(3, 32),
+                                                    both(2, 3, 32, 32)]
+    compare("ops.wkv6 (chunked form)", ops.wkv6, args, ("wkv6_chunked", "wkv6_bwd"))
     for name, call in (
         ("flash_attention_cuda", lambda: flash_attention_cuda(q[1], k[1], v[1], True)),
         ("wkv6_cuda", lambda: wkv6_cuda(r[1], kk[1], vv[1], w[1], u[1], s0[1])),
@@ -1215,7 +1293,7 @@ def lm_main_shape_phase(torch, dev) -> dict:
     from repro_torch.kernels.flash_attention import (
         attention_cost, flash_attention_cuda, flash_attention_plain,
     )
-    from repro_torch.kernels.wkv6 import wkv6_cost, wkv6_cuda, wkv6_plain
+    from repro_torch.kernels.wkv6 import wkv6_cost, wkv6_plain
 
     log("phase 2b: LM main-path shapes")
     rng = np.random.default_rng(12)
@@ -1272,31 +1350,41 @@ def lm_main_shape_phase(torch, dev) -> dict:
 
     # K5 as the model calls it: strided views of (B, T, H, D), bf16 u (its
     # float32 copy cached), the state written over itself; at RWKV6-7B's
-    # decode shape (the main path), then its prefill shape (which serving
-    # does not take: it feeds prompts through the decode step)
+    # decode shape (the serial form's main path), then at T 4096, the
+    # training and prefill shape (serving does not prefill: it feeds
+    # prompts through the decode step), in the chunked form (its main
+    # path) and, beside it, in the serial form on the same inputs; device
+    # time by name prefix: the serial kernel's, or the sum of the chunked
+    # form's three kernels (wkv6c_chunk_kernel twice, wkv6c_scan_kernel)
     rc = get("rwkv6-7b")
-    rows = []
-    for B, T, reps, what in ((SLOTS, 1, LM_REPS * 10, "decode"),
-                             (1, PREFILL_LEN, LM_REPS, "prefill")):
-        H, D = rc.n_heads, rc.d_model // rc.n_heads
-        args = wkv6_inputs(torch, rng, dev, torch.bfloat16, B, H, T, D, True, strided=True)
+    H, D = rc.n_heads, rc.d_model // rc.n_heads
+    rows = {"wkv6": [], "wkv6_chunked": []}
+    plain = {}
+    for B, T, reps, what, form, key in (
+            (SLOTS, 1, LM_REPS * 10, "decode", "wkv6", "wkv6_kernel"),
+            (1, PREFILL_LEN, LM_REPS, "training", "wkv6_chunked", "wkv6c_"),
+            (1, PREFILL_LEN, LM_REPS, "training", "wkv6", "wkv6_kernel")):
+        if T not in plain:
+            args = wkv6_inputs(torch, rng, dev, torch.bfloat16, B, H, T, D, True, strided=True)
+            plain[T] = cuda_ms(torch, lambda: wkv6_plain(*args), reps if T == 1 else 1)
         label = (f"rwkv6-7b {what}: B={B} H={H} T={T} D={D} bf16, strided, "
-                 f"state f32 written in place")
-        err = check_wkv6(torch, args, label)
+                 f"state f32 written in place, {form}")
+        err = check_wkv6(torch, args, label, form=form)
         r, k, v, w, u, s0 = args
         state = s0.clone()
-        step = lambda: wkv6_cuda(r, k, v, w, u, state, state_out=state)
+        step = lambda: wkv6_call(form)(r, k, v, w, u, state, state_out=state)
         k_ms = cuda_ms(torch, step, reps)
-        d_ms = device_ms(torch, step, "wkv6_kernel", reps)
-        p_ms = cuda_ms(torch, lambda: wkv6_plain(*args), reps if T == 1 else 1)
+        parts = {}
+        d_ms = device_ms(torch, step, key, reps, per_call=True, breakdown=parts)
         nbytes, nops = wkv6_cost(B, H, T, D, r.element_size(), u.element_size())
-        b_ms, b_by = bound_ms(nbytes, nops)
-        row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+        b_ms, b_by = bound_ms(nbytes, nops, PEAK_TF32_OPS_PER_S)
+        row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=plain[T],
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops,
+                   bound_cuda_cores_ms=bound_ms(nbytes, nops)[0], device_ms_by_kernel=parts)
         log("   ", json.dumps(row))
-        rows.append(row)
-        del args, r, k, v, w, state
-    out["wkv6"] = rows
+        rows[form].append(row)
+        del r, k, v, w, state
+    out.update(rows)
     return out
 
 
@@ -1369,9 +1457,10 @@ def bwd_main_shape_phase(torch, dev) -> dict:
     d_ms = device_ms(torch, bwd, "wkv6_bwd_", 3, per_call=True)
     p_ms = cuda_ms(torch, lambda: wkv6_bwd_plain(*args, dy), 1)
     nbytes, nops = wkv6_bwd_cost(1, H, TRAIN_SEQ, D, args[0].element_size())
-    b_ms, b_by = bound_ms(nbytes, nops)
+    b_ms, b_by = bound_ms(nbytes, nops, PEAK_TF32_OPS_PER_S)
     row = dict(label=label, max_abs_err=err, ms=k_ms, device_ms=d_ms, plain_ms=p_ms,
-               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops)
+               library_ms=None, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, ops=nops,
+               bound_cuda_cores_ms=bound_ms(nbytes, nops)[0])
     log("   ", json.dumps(row))
     out["wkv6_bwd"] = [row]
     del args, dy
@@ -1647,6 +1736,7 @@ def lm_check_phase(torch, ops, dev) -> dict:
 
     from repro_torch.configs import get
     from repro_torch.models import lm
+    from repro_torch.kernels.wkv6 import wkv6_form
     from repro_torch.models.config import reduced
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1656,7 +1746,7 @@ def lm_check_phase(torch, ops, dev) -> dict:
                        ("kimi-k2-1t-a32b", {}), ("zamba2-2.7b", {}),
                        ("llama-3.2-vision-90b", {}), ("musicgen-medium", {})):
         cfg = reduced(get(arch), **over)
-        kernel, want_launches = (("wkv6", cfg.n_layers) if cfg.family == "rwkv6"
+        kernel, want_launches = ((wkv6_form(128), cfg.n_layers) if cfg.family == "rwkv6"
                                  else ("flash_attention_f32_sm90", attention_layers(cfg)))
         cpu = lm.init_params(cfg, torch.Generator("cpu").manual_seed(1), device="cpu")
         for block in (cpu["cross_blocks"] if "cross_blocks" in cpu else []):
@@ -1707,14 +1797,17 @@ def lm_check_phase(torch, ops, dev) -> dict:
 # ----------------------------------------------------------------------
 # phase 8: training
 # ----------------------------------------------------------------------
-def train_launches(cfg) -> dict:
-    """Kernel launches of one microbatch's forward and backward under
-    ``remat="nothing"``: a checkpointed block runs its forward twice (once
-    more in the backward), the hybrid's shared attention block, which is
-    not checkpointed, once; one backward launch per layer (K4's of the
-    compute dtype, both on the tensor cores: bf16, or float32 in split TF32)."""
+def train_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one microbatch's forward and backward of ``seq``
+    steps under ``remat="nothing"``: a checkpointed block runs its forward
+    twice (once more in the backward), the hybrid's shared attention block,
+    which is not checkpointed, once; one backward launch per layer (K4's
+    of the compute dtype, both on the tensor cores: bf16, or float32 in
+    split TF32; K5's forward in the form ``wkv6_form`` picks by ``seq``)."""
     if cfg.family == "rwkv6":
-        return {"wkv6": 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
+        from repro_torch.kernels.wkv6 import wkv6_form
+
+        return {wkv6_form(seq): 2 * cfg.n_layers, "wkv6_bwd": cfg.n_layers}
     bf16 = cfg.compute_dtype == "bfloat16"
     fwd = "flash_attention_sm90" if bf16 else "flash_attention_f32_sm90"
     bwd = "flash_attention_bwd_sm90" if bf16 else "flash_attention_bwd_f32_sm90"
@@ -1790,9 +1883,9 @@ def train_check_phase(torch, ops, dev) -> None:
             raise AssertionError(f"{arch} {what}: card loss {loss_c!r}, CPU loss {loss_h!r}")
         tol = TRAIN_TOL["grad_ssd" if cfg.family == "mamba_hybrid" else "grad"]
         err = close_leaves(torch, grads_c, grads_h, tol, tol)
-        if launched != train_launches(cfg):
-            raise AssertionError(f"{arch}: a microbatch launched {launched}, wants "
-                                 f"{train_launches(cfg)}")
+        want = train_launches(cfg, batch["labels"].shape[1])
+        if launched != want:
+            raise AssertionError(f"{arch}: a microbatch launched {launched}, wants {want}")
         return loss_c, loss_h, err, launched
 
     def step_both(card_s, cpu_s, batch):
@@ -1869,7 +1962,7 @@ def train_run(torch, ops, arch: str, depth: int, batch: int, seed: int, dev) -> 
         f"{n_params} parameters ({cfg.param_dtype}) and optimizer state on the card in "
         f"{time.perf_counter() - t:.3f} s, {torch.cuda.memory_allocated() / 1e9:.3f} GB")
     step = make_train_step(cfg)
-    want = {n: c * cfg.microbatches for n, c in train_launches(cfg).items()}
+    want = {n: c * cfg.microbatches for n, c in train_launches(cfg, TRAIN_SEQ).items()}
     step_ms, losses, launches = [], [], None
     for i in range(TRAIN_STEPS):
         ops.reset_launches()
@@ -3462,7 +3555,7 @@ def sharded_steps(torch, ops, dev, seed: int) -> dict:
     from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.train_step import init_train_state, make_train_step
 
-    kernels = ("flash_attention_sm90", "flash_attention_bwd_sm90", "wkv6")
+    kernels = ("flash_attention_sm90", "flash_attention_bwd_sm90", "wkv6_chunked")
     out = {"launches_sharded": {}}
 
     def counted(fn):
@@ -3569,13 +3662,20 @@ def sharded_steps(torch, ops, dev, seed: int) -> dict:
             cfg = dataclasses.replace(get(arch), n_layers=SHARDED_LAYERS)
             params = lm.init_params(cfg, gen(), device=dev)
             pb = model_inputs(torch, cfg, dev, 1, SHARDED_SEQ, seed)
+            t = time.perf_counter()
             want, want_launches = counted(lambda: lm.prefill(cfg, params, pb))
+            plain_ms = (time.perf_counter() - t) * 1e3
             dparams = distribute_params(lm, partition, params, mesh,
                                         partition.param_specs(params, cfg))
             dpb = partition.distribute_tree(
                 pb, partition.shardings_from_specs(mesh, partition.batch_specs(mesh, pb)))
+            t = time.perf_counter()
             with implicit_replication():
                 dlogits, launches = counted(lambda: lm.prefill(cfg, dparams, dpb))
+            sharded_ms = (time.perf_counter() - t) * 1e3
+            log(f"  {arch} prefill (1 x {SHARDED_SEQ}, {SHARDED_LAYERS} layers, each the first "
+                f"call of its form): {sharded_ms:.3f} ms on DTensors, {plain_ms:.3f} ms unsharded")
+            out.setdefault("prefill_ms", {})[arch] = {"sharded": sharded_ms, "unsharded": plain_ms}
             add(launches)
             same(f"{arch} prefill (1 x {SHARDED_SEQ})", dlogits.full_tensor(), want, launches,
                  want_launches)
@@ -3762,6 +3862,8 @@ def main() -> int:
         lm_runs["qwen3-14b"]["prefill"]["launches"]["flash_attention_sm90"])
     launches["flash_attention_f32_sm90"] = f32_runs["qwen3-14b"]["flash_attention_f32_sm90"]
     launches["wkv6"] = lm_runs["rwkv6-7b"]["serve"]["launches"]["wkv6"]
+    # K5's chunked form: one RWKV6-7B train step of phase 8b (T 4096)
+    launches["wkv6_chunked"] = train_runs["rwkv6-7b"]["launches"]["wkv6_chunked"]
     launches["hash32x2"] = shapes["hash32x2"][0]["launches"]
     # the backward kernels: bf16 K4 and K5 in one train step of phase 8b,
     # float32 K4 in one reduced float32 Qwen3-14B microbatch of phase 8a
@@ -3789,6 +3891,8 @@ def main() -> int:
         "flash_attention_f32_sm90": ("src/repro_torch/kernels/csrc/flash_attention_f32_sm90.cu",
                                      "src/repro/kernels/flash_attention.py:65"),
         "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6.py:51"),
+        "wkv6_chunked": ("src/repro_torch/kernels/csrc/wkv6_chunked.cu",
+                         "src/repro/kernels/wkv6.py:51"),
         # the backward kernels have no TPU counterpart (the JAX package
         # differentiates through XLA): "replaces" names the TPU kernel
         # whose function they differentiate
@@ -3810,6 +3914,10 @@ def main() -> int:
             "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"], "shape": row["label"],
+            # the bound at the CUDA cores' float32 rate, where the row's
+            # takes a tensor-core one
+            **({"bound_cuda_cores_ms": row["bound_cuda_cores_ms"]}
+               if "bound_cuda_cores_ms" in row else {}),
             "backward": name in BACKWARD_KERNELS,
             # K1's float sums give the same bits on every launch (phase 2a)
             **({"deterministic": True,

@@ -45,6 +45,8 @@ SIGNATURES = {
     "segment_sum": ("repro_segment_sum", [_I, _I, _P, _P, _L, _L, _P, _P, _P]),
     "substr_find": ("repro_substr_find", [_I, _P, _P, _P, _P, _I, _P, _I, _L, _I, _P, _P]),
     "wkv6": ("repro_wkv6", [_I, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.POINTER(_L), _P]),
+    # K5's forward for long sequences (kernels/wkv6.py ``wkv6_form``)
+    "wkv6_chunked": ("repro_wkv6_chunked", [_I] + [_P] * 9 + [ctypes.POINTER(_L), _P]),
     "flash_attention_sm90": (
         "repro_flash_attention_sm90",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _I, _P],

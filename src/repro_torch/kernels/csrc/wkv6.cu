@@ -4,7 +4,11 @@
 //   S_t = diag(w_t) S_{t-1} + k_t v_t^T
 //
 // Replaces the TPU kernel `wkv6_pallas` (src/repro/kernels/wkv6.py, body
-// `_kernel`), which keeps the (D, D) state in VMEM scratch across a
+// `_kernel`) for short calls: kernels/wkv6.py `wkv6_form` sends a call of
+// fewer than CHUNKED_MIN_T (128) steps here, the decode step (T = 1)
+// among them, and a longer one to the chunked form of wkv6_chunked.cu,
+// whose three launches cost more than this walk at small T.  The TPU
+// kernel keeps the (D, D) state in VMEM scratch across a
 // sequential time-block grid.  Hopper blocks run in no order, so here one
 // thread block owns one (batch, head) and loops over all T steps itself;
 // thread j keeps column j of the f32 state in registers for the whole

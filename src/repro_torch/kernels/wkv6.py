@@ -3,12 +3,20 @@
     y_t = r_t · (S_{t-1} + diag(u) k_t v_t^T)
     S_t = diag(w_t) S_{t-1} + k_t v_t^T
 
-``wkv6_cuda`` launches the hand-written kernel in ``csrc/wkv6.cu``, the
-Hopper counterpart of the TPU kernel ``wkv6_pallas``; ``wkv6_plain`` is
-the plain PyTorch version, the per-step recurrence of
-``ref.wkv6_reference``.  ``kernels.ops.wkv6`` picks between them by the
-tensor's device.  The state is carried in and out in float32, so two
-calls chained through it equal one call over the whole sequence.
+``wkv6_cuda`` launches a hand-written kernel, the Hopper counterpart of
+the TPU kernel ``wkv6_pallas``, in one of two forms that ``wkv6_form``
+picks by the number of steps T alone: below ``CHUNKED_MIN_T`` the serial
+kernel of ``csrc/wkv6.cu`` (launch name ``wkv6``: a block a head walks
+the steps in order; the decode step, T 1), from it on the chunked kernel
+of ``csrc/wkv6_chunked.cu`` (``wkv6_chunked``: chunks of CHUNK steps at
+once on the tensor cores, then a scan over the chunks, then every chunk's
+outputs at once; the training and prefill shapes), which takes a float32
+scratch of ``chunked_scratch_size`` elements from the wrapper.
+``wkv6_plain`` is the plain PyTorch version, the per-step recurrence of
+``ref.wkv6_reference``.  ``kernels.ops.wkv6`` picks between kernel and
+plain version by the tensor's device.  The state is carried in and out
+in float32, so two calls chained through it equal one call over the
+whole sequence.
 
 Both take the same contract:
 
@@ -57,8 +65,29 @@ from . import build
 
 #: input dtypes the kernel takes, with the C interface's dtype code
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head sizes the kernel is instantiated for (one thread per state column)
+#: head sizes the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+#: steps of a chunk of the chunked forward kernel (kChunk in its source)
+CHUNK = 64
+#: the fewest steps the chunked forward takes: a shorter call runs the
+#: serial kernel, whose time grows with T from 3 microseconds at T 1.  On
+#: an H100 at RWKV6-7B's heads (``launch/wkv6_forms.py``) the chunked
+#: form is as fast or faster from T 128 on at B 1 and 4, slower below
+CHUNKED_MIN_T = 128
+#: launch names of the two forward forms
+FORWARD_FORMS = ("wkv6", "wkv6_chunked")
+
+
+def wkv6_form(T: int) -> str:
+    """The forward kernel that takes a call of T steps: ``"wkv6"`` (serial)
+    below ``CHUNKED_MIN_T``, else ``"wkv6_chunked"``."""
+    return "wkv6_chunked" if T >= CHUNKED_MIN_T else "wkv6"
+
+
+def chunked_scratch_size(B: int, H: int, T: int, D: int) -> int:
+    """float32 elements of the chunked kernel's scratch: each chunk's state
+    (its increment, then its starting state) and its total decay."""
+    return B * H * -(-T // CHUNK) * (D * D + D)
 
 
 def _y_buffer(r: torch.Tensor) -> torch.Tensor:
@@ -203,10 +232,30 @@ def wkv6_cuda(
     *,
     state_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``wkv6_plain`` on the card, through the CUDA kernel."""
+    """``wkv6_plain`` on the card, through the CUDA kernel of the form
+    ``wkv6_form`` picks by the call's steps."""
+    return _wkv6_launch(wkv6_form(r.shape[2]), r, k, v, w, u, state, state_out=state_out)
+
+
+def _wkv6_launch(
+    name: str,
+    r: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,
+    state: Optional[torch.Tensor] = None,
+    *,
+    state_out: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wkv6_cuda`` through the forward kernel ``name`` (one of
+    ``FORWARD_FORMS``) at any T: the card's checks and timings hold each
+    form on the same inputs."""
     dev = r.device
     if dev.type != "cuda":
         raise ValueError(f"wkv6 kernel needs CUDA tensors, got {dev}")
+    if name not in FORWARD_FORMS:
+        raise ValueError(f"wkv6 kernel forms are {FORWARD_FORMS}, got {name!r}")
     if build.wants_grad(r, k, v, w, u, state):
         raise RuntimeError(
             "wkv6_cuda: CUDA inputs that require a gradient go through ops.wkv6 (Wkv6Fn); "
@@ -224,23 +273,28 @@ def wkv6_cuda(
     y = _y_buffer(r)
     if plan.empty:
         return y, (sout.zero_() if s0 is None else sout.copy_(s0))
-    fn = build.kernel("wkv6")
+    fn = build.kernel(name)
     if dev.index == torch.cuda.current_device():
-        err = _launch(fn, plan, r, k, v, w, u, s0, y, sout, dev)
+        err = _launch(fn, name, plan, r, k, v, w, u, s0, y, sout, dev)
     else:
         with torch.cuda.device(dev):
-            err = _launch(fn, plan, r, k, v, w, u, s0, y, sout, dev)
-    build.check("wkv6", err)
+            err = _launch(fn, name, plan, r, k, v, w, u, s0, y, sout, dev)
+    build.check(name, err)
     return y, sout
 
 
-def _launch(fn, plan, r, k, v, w, u, s0, y, sout, dev) -> int:
-    err = fn(
-        plan.dtype, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        _u_f32(u).data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        sout.data_ptr(), plan.dims, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    build.LAUNCHES["wkv6"] += 1
+def _launch(fn, name, plan, r, k, v, w, u, s0, y, sout, dev) -> int:
+    args = [plan.dtype, r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            _u_f32(u).data_ptr(), None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            sout.data_ptr()]
+    if name == "wkv6_chunked":
+        # freed right after the launch: the allocator hands the memory to
+        # later work on the same stream only, which runs after the kernels
+        scratch = torch.empty((chunked_scratch_size(*r.shape),), dtype=torch.float32,
+                              device=dev)
+        args.append(scratch.data_ptr())
+    err = fn(*args, plan.dims, torch.cuda.current_stream(dev).cuda_stream)
+    build.LAUNCHES[name] += 1
     return err
 
 
@@ -417,9 +471,9 @@ def wkv6_bwd_cost(B: int, H: int, T: int, D: int, itemsize: int) -> Tuple[int, i
 def wkv6_fake(r, k, v, w, u, state=None, *, state_out=None):
     """The fake route of the forward kernel: y as ``_y_buffer`` gives it
     and the final state (``state_out`` where given), unwritten; the cost
-    goes to ``build.FAKE_COSTS``."""
+    goes to ``build.FAKE_COSTS`` under the name of the form T takes."""
     B, H, T, D = r.shape
-    build.record_fake("wkv6", *wkv6_cost(B, H, T, D, r.element_size(), u.element_size()))
+    build.record_fake(wkv6_form(T), *wkv6_cost(B, H, T, D, r.element_size(), u.element_size()))
     sout = (torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
             if state_out is None else state_out)
     return _y_buffer(r), sout

@@ -31,7 +31,9 @@ Three subcommands::
 
 ``sweep``
     ``prepare`` (unless ``--prepared``: the workdir already holds its
-    output), then four ``run`` children.  On a CUDA device the cap is
+    output), then four ``run`` children, two at a time (each child's cap
+    and peaks are its own process's; its seconds are taken while the
+    other child runs).  On a CUDA device the cap is
     measured, not guessed: an uncapped eager child and an uncapped ooc
     child report their peaks (``torch.cuda.max_memory_reserved`` and
     ``max_memory_allocated``), and the cap goes halfway between ooc's
@@ -217,8 +219,23 @@ def cmd_run(args) -> int:
     return 0 if ok else 1
 
 
-def _spawn(args, mode: str, cap_mb: int) -> tuple:
-    """Run one ``run`` child; returns (exit code, its report, its output)."""
+def _spawn_pair(args, runs) -> list:
+    """Run two ``run`` children, ``runs`` = ((mode, cap MB), (mode, cap MB)),
+    at once; returns (exit code, its report, its output) of each."""
+    procs = [_start(args, mode, cap_mb) for mode, cap_mb in runs]
+    out = []
+    for proc in procs:
+        stdout, stderr = proc.communicate()
+        report = None
+        for line in stdout.splitlines():
+            if line.startswith('{"run"'):
+                report = json.loads(line)["run"]
+        out.append((proc.returncode, report, stdout + stderr[-4000:]))
+    return out
+
+
+def _start(args, mode: str, cap_mb: int) -> subprocess.Popen:
+    """Start one ``run`` child."""
     cmd = [
         sys.executable, "-m", "repro_torch.launch.run_capped", "run",
         "--mode", mode, "--cap-mb", str(cap_mb), "--workdir", args.workdir,
@@ -228,12 +245,8 @@ def _spawn(args, mode: str, cap_mb: int) -> tuple:
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(SRC), env.get("PYTHONPATH")) if p
     )
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env)
-    report = None
-    for line in proc.stdout.splitlines():
-        if line.startswith('{"run"'):
-            report = json.loads(line)["run"]
-    return proc.returncode, report, proc.stdout + proc.stderr[-4000:]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env)
 
 
 def cmd_sweep(args) -> int:
@@ -245,8 +258,8 @@ def cmd_sweep(args) -> int:
     if _is_cuda(args.device):
         # measure both paths uncapped, then cap between their peaks
         peaks = {}
-        for mode in ("eager", "ooc"):
-            rc, report, out = _spawn(args, mode, 0)
+        for mode, (rc, report, out) in zip(("eager", "ooc"),
+                                           _spawn_pair(args, (("eager", 0), ("ooc", 0)))):
             if rc != 0 or report is None or not report["ok"]:
                 print(out)
                 print(f"::error::uncapped {mode} run failed (exit {rc})")
@@ -271,7 +284,7 @@ def cmd_sweep(args) -> int:
         cap_mb = args.cap_mb
     summary["cap_mb"] = cap_mb
 
-    rc, report, out = _spawn(args, "eager", cap_mb)
+    (rc, report, out), ooc = _spawn_pair(args, (("eager", cap_mb), ("ooc", cap_mb)))
     summary["eager_exit"] = rc
     if rc != OOM_EXIT:
         print(out)
@@ -279,7 +292,7 @@ def cmd_sweep(args) -> int:
               f"out-of-memory error (exit {rc}): the cap proves nothing")
         return 1
     summary["eager_oom"] = report["oom"]
-    rc, report, out = _spawn(args, "ooc", cap_mb)
+    rc, report, out = ooc
     summary["ooc_exit"] = rc
     if rc != 0 or report is None or not report["ok"]:
         print(out)

@@ -358,29 +358,39 @@ def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(1, min(C, n_tokens))
 
 
-def _moe_dispatch(xt, top_e, C: int, E: int, K: int, dt, e0: int, n: int):
-    """The (n, C, D) rows of experts ``[e0, e0 + n)`` of the (E, C, D)
-    expert buffer of tokens xt (N, D) routed to top_e (N, K), with each
-    token slot's destination row in the whole buffer (``E * C`` where
-    dropped), the sort order and the kept mask."""
+def _moe_dispatch(xt, top_e, C: int, Cb: int, E: int, K: int, dt, e0: int, n: int,
+                  offset: Optional[torch.Tensor] = None, n_valid: Optional[int] = None):
+    """The (n, Cb, D) rows of experts ``[e0, e0 + n)`` of the (E, Cb, D)
+    expert buffer of tokens xt (N, D) routed to top_e (N, K): each token
+    slot's rank within its expert (ties in token order), plus ``offset``
+    (E,), the slots of each expert on the token ranks before this one;
+    slots of rank C or more are dropped, and so are the slots of tokens
+    from ``n_valid`` on (padding).  Returns the rows, each slot's
+    destination row in the whole buffer (``E * Cb`` where dropped), the
+    sort order and the kept mask."""
     N, D = xt.shape
     flat_e = top_e.reshape(-1)  # (N*K,)
+    if n_valid is not None:  # padding's slots go to a sentinel expert E, sorted last
+        pads = torch.arange(N * K, device=xt.device) >= n_valid * K
+        flat_e = torch.where(pads, E, flat_e)
     order = torch.argsort(flat_e, stable=True)  # ties keep token order
     sorted_e = flat_e[order]
     # rank within expert = position - first index of that expert's run
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     rank = torch.arange(N * K, device=xt.device) - first
-    keep = rank < C
-    dest = torch.where(keep, sorted_e * C + rank, E * C)  # overflow -> trash row
+    if offset is not None:
+        rank = rank + offset[sorted_e.clamp(max=E - 1)]
+    keep = (rank < C) & (sorted_e < E)
+    dest = torch.where(keep, sorted_e * Cb + rank, E * Cb)  # overflow -> trash row
     mine = keep & (sorted_e >= e0) & (sorted_e < e0 + n)
-    buf = torch.zeros((n * C + 1, D), dtype=dt, device=xt.device)
-    buf.index_copy_(0, torch.where(mine, dest - e0 * C, n * C), xt[order // K].to(dt))
-    return buf[: n * C].reshape(n, C, D), dest, order, keep
+    buf = torch.zeros((n * Cb + 1, D), dtype=dt, device=xt.device)
+    buf.index_copy_(0, torch.where(mine, dest - e0 * Cb, n * Cb), xt[order // K].to(dt))
+    return buf[: n * Cb].reshape(n, Cb, D), dest, order, keep
 
 
 def _moe_combine(y: torch.Tensor, dest, order, keep, top_p: torch.Tensor, K: int, dt, e0: int):
     """Each token's gated sum of its kept slots' outputs in experts ``[e0,
-    e0 + n)``, y (n, C, D): with all E experts, the token's output; with a
+    e0 + n)``, y (n, Cb, D): with all E experts, the token's output; with a
     slice of them, its partial sum over the ranks that hold the others."""
     n, C, D = y.shape
     N = top_p.shape[0]
@@ -393,20 +403,45 @@ def _moe_combine(y: torch.Tensor, dest, order, keep, top_p: torch.Tensor, K: int
     return torch.zeros((N, D), dtype=dt, device=y.device).index_add_(0, order // K, contrib)
 
 
-def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _slot_counts(top_e: torch.Tensor, E: int, n_valid: Optional[int] = None) -> torch.Tensor:
+    """(1, E): the slots of the first ``n_valid`` tokens (all) routed to
+    each expert (a static shape, so fake tensors take it too)."""
+    flat_e = top_e[:n_valid].reshape(-1)
+    counts = torch.zeros((E,), dtype=torch.int64, device=top_e.device)
+    return counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))[None]
+
+
+def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor, real_rows: Optional[int] = None) -> torch.Tensor:
     """x (B, S, D).  Sort-based top-k dispatch into an (E, C, D) buffer;
-    token-slots past an expert's capacity C are dropped.
+    token-slots past an expert's capacity C are dropped.  ``real_rows``,
+    where the sharded step padded the batch (``lm._row_pad``): the rows of
+    each token shard that are not padding; the padding's tokens take no
+    slot and do not count in C.
 
     On DTensors (the sharded step) the dispatch and the combine have no
     sharding strategy in DTensor (``searchsorted``, the sort-order
     gathers, ``index_copy_``/``index_add_``): each runs through
-    ``local_map`` on each rank's own tokens, which fill that rank's
-    capacity slots (C from its token count, the buffer sharded on C where
-    the tokens are sharded).  Where a mesh dim of more than one rank
-    shards the experts (expert parallelism over "model"), a rank fills
-    and reads only its own experts' rows, and the combine leaves each
-    token's output a partial sum over that dim; the expert products run
-    on DTensors."""
+    ``local_map`` on each rank's own tokens.  The reference takes one
+    capacity C from all N tokens and ranks every slot in one stable sort
+    over all of them; tokens are sharded in order, so a slot's rank within
+    its expert is its rank among its own rank's slots plus the slots of
+    that expert on the token ranks before it: each rank counts its slots
+    per expert, one all-gather of those E counts gives every rank its
+    offsets, and a slot is kept where its global rank is below C, where
+    the reference keeps it.  Its row in the buffer is the reference's row,
+    expert e's row e C + rank (C padded to a multiple of the token ranks,
+    the padded rows empty).  Which rank a slot lands on follows from the
+    data, so the buffer leaves the dispatch ``Partial`` over the token
+    dims, each rank's rows filled disjointly (a sum of its rows and other
+    ranks' zeros, exact), and is reduce-scattered to rows a rank owns
+    (``Shard(1)``), each rank's share of every expert's rows: the expert
+    products run on DTensors, on a rank's C / ranks rows as in the
+    reference's partitioning.  The combine gathers the outputs' rows over
+    the token dims and each rank reads its own slots' rows; its gradient
+    for them is a partial sum over those dims.  Where a mesh dim of more
+    than one rank shards the experts (expert parallelism over "model"), a
+    rank fills and reads only its own experts' rows, and the combine
+    leaves each token's output a partial sum over that dim."""
     mc = cfg.moe
     B, S, D = x.shape
     N = B * S
@@ -419,19 +454,30 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
     K = mc.top_k
     E = mc.n_experts
+    C = moe_capacity(cfg, N)
     if isinstance(xt, DTensor):
         mesh = xt.device_mesh
         tok = [isinstance(pl, Shard) and pl.dim == 0 and N % mesh.size(i) == 0
                for i, pl in enumerate(xt.placements)]
-        ranks = math.prod(mesh.size(i) for i, t in enumerate(tok) if t)
-        C = moe_capacity(cfg, N // ranks)
         tok_pl = tuple(Shard(0) if t else Replicate() for t in tok)
+        rep = (Replicate(),) * mesh.ndim
+        # this rank's place among the token ranks: dim 0 is split over the
+        # token dims in mesh order, the first one outermost
+        ranks, tok_index = 1, 0
+        for i, t in enumerate(tok):
+            if t:
+                ranks *= mesh.size(i)
+                tok_index = tok_index * mesh.size(i) + mesh.get_local_rank(i)
+        n_valid = None if real_rows is None else real_rows * S
+        if n_valid is not None:
+            C = moe_capacity(cfg, ranks * n_valid)
+        Cb = -(-C // ranks) * ranks
         w = p["w_gate"]
         ex = [i for i, pl in enumerate(getattr(w, "placements", ()))
               if not tok[i] and isinstance(pl, Shard) and pl.dim == 0 and mesh.size(i) > 1
               and E % mesh.size(i) == 0][:1]
-        buf_pl = tuple(Shard(1) if t else Shard(0) if i in ex else Replicate()
-                       for i, t in enumerate(tok))
+        exp_pl = lambda on_tok: tuple(on_tok if t else Shard(0) if i in ex else Replicate()
+                                      for i, t in enumerate(tok))
         out_pl = tuple(Shard(0) if t else Partial() if i in ex else Replicate()
                        for i, t in enumerate(tok))
         # a rank's tokens reach only its experts' rows: the gradient of
@@ -441,20 +487,26 @@ def moe_ffn(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
             xt, top_p = grad_to_own(xt), grad_to_own(top_p)
         n = E // mesh.size(ex[0]) if ex else E
         e0 = mesh.get_local_rank(ex[0]) * n if ex else 0
-        fill = lambda a, b: _moe_dispatch(a, b, C, E, K, dt, e0, n)
+        count = local_map(lambda e: _slot_counts(e, E, n_valid), out_placements=(tok_pl,),
+                          in_placements=(tok_pl,), redistribute_inputs=True, device_mesh=mesh)
+        counts = count(top_e).redistribute(mesh, rep)  # (ranks, E) on every rank: an all-gather
+        fill = lambda a, b, cnt: _moe_dispatch(a, b, C, Cb, E, K, dt, e0, n,
+                                               cnt[:tok_index].sum(0), n_valid)
         gather = lambda *a: _moe_combine(*a, K, dt, e0)
-        dispatch = local_map(fill, out_placements=(buf_pl, tok_pl, tok_pl, tok_pl),
-                             in_placements=(tok_pl, tok_pl), in_grad_placements=(tok_grad, tok_pl),
+        dispatch = local_map(fill, out_placements=(exp_pl(Partial()), tok_pl, tok_pl, tok_pl),
+                             in_placements=(tok_pl, tok_pl, rep),
+                             in_grad_placements=(tok_grad, tok_pl, rep),
                              redistribute_inputs=True, device_mesh=mesh)
         combine = local_map(gather, out_placements=(out_pl,),
-                            in_placements=(buf_pl, tok_pl, tok_pl, tok_pl, tok_pl),
-                            in_grad_placements=(buf_pl, tok_pl, tok_pl, tok_pl, tok_grad),
+                            in_placements=(exp_pl(Replicate()), tok_pl, tok_pl, tok_pl, tok_pl),
+                            in_grad_placements=(exp_pl(Partial()), tok_pl, tok_pl, tok_pl,
+                                                tok_grad),
                             redistribute_inputs=True, device_mesh=mesh)
+        buf, dest, order, keep = dispatch(xt, top_e, counts)
+        buf = buf.redistribute(mesh, exp_pl(Shard(1)))  # rows a rank owns: a reduce-scatter
     else:
-        C = moe_capacity(cfg, N)
-        dispatch = lambda a, b: _moe_dispatch(a, b, C, E, K, dt, 0, E)
+        buf, dest, order, keep = _moe_dispatch(xt, top_e, C, C, E, K, dt, 0, E)
         combine = lambda *a: _moe_combine(*a, K, dt, 0)
-    buf, dest, order, keep = dispatch(xt, top_e)
 
     g = torch.bmm(buf, p["w_gate"].to(dt))  # einsum("ecd,edf->ecf")
     u = torch.bmm(buf, p["w_up"].to(dt))

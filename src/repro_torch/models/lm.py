@@ -16,7 +16,7 @@ inverse, for weights and for gradients.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Mapping, Optional, Tuple, Union
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -281,18 +281,18 @@ def _wants_grad(params: Params) -> bool:
 # ----------------------------------------------------------------------
 # forward (train / prefill)
 # ----------------------------------------------------------------------
-def _ffn(cfg: ModelConfig, bp, xn):
+def _ffn(cfg: ModelConfig, bp, xn, real_rows: Optional[int] = None):
     if "moe" in bp:
-        return layers.moe_ffn(bp["moe"], cfg, xn)
+        return layers.moe_ffn(bp["moe"], cfg, xn, real_rows)
     return layers.mlp(bp["mlp"], cfg, xn)
 
 
-def _self_block(cfg: ModelConfig, x, bp, positions):
+def _self_block(cfg: ModelConfig, x, bp, positions, real_rows: Optional[int] = None):
     h, _ = layers.attention(
         bp["attn"], cfg, layers.rms_norm(x, bp["norm1"], cfg.norm_eps), positions
     )
     x = x + h
-    return x + _ffn(cfg, bp, layers.rms_norm(x, bp["norm2"], cfg.norm_eps))
+    return x + _ffn(cfg, bp, layers.rms_norm(x, bp["norm2"], cfg.norm_eps), real_rows)
 
 
 def _cross_block(cfg: ModelConfig, x, bp, img):
@@ -338,6 +338,69 @@ def _inputs(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor])
     return batch["embeddings"].to(dt)
 
 
+class _RowPad(NamedTuple):
+    """How a DTensor batch is padded: the mesh dims that shard its rows,
+    the rows each such shard holds, and the rows added to each."""
+    dims: Tuple[bool, ...]
+    rows: int
+    pad: int
+
+
+def _row_pad(batch: Mapping[str, torch.Tensor]) -> Optional[_RowPad]:
+    """The padding of a DTensor batch whose shards' rows the mesh dims that
+    do not shard them (the "model" axis) cannot split: DTensor refuses
+    views of a dim sharded unevenly, where the reference's partitioner
+    pads.  Each shard's rows are padded up to a multiple of those dims
+    where neither of the two divides the other (3 rows on 2 ranks, not 2
+    on 16 or 4 on 2); None where nothing is padded (plain tensors, and
+    such batches)."""
+    lead = batch.get("tokens", batch.get("embeddings"))
+    if not isinstance(lead, DTensor):
+        return None
+    mesh = lead.device_mesh
+    dims = tuple(isinstance(p, Shard) and p.dim == 0 for p in lead.placements)
+    rows = lead.shape[0] // int(np.prod([mesh.size(i) for i, d in enumerate(dims) if d]))
+    others = int(np.prod([mesh.size(i) for i, d in enumerate(dims) if not d]))
+    if rows % others == 0 or others % rows == 0:
+        return None
+    return _RowPad(dims, rows, -(-rows // others) * others - rows)
+
+
+def _row_placements(t: DTensor, dims: Tuple[bool, ...]) -> Tuple:
+    """``t``'s placements with its rows sharded over ``dims`` alone."""
+    return tuple(Shard(0) if d else Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+                 for d, p in zip(dims, t.placements))
+
+
+def _pad_rows(t: DTensor, rp: _RowPad, value=0) -> DTensor:
+    """Each shard of ``t``'s rows with ``rp.pad`` rows of ``value`` after it."""
+    pl = _row_placements(t, rp.dims)
+    fill = lambda x: torch.cat([x, x.new_full((rp.pad, *x.shape[1:]), value)])
+    return local_map(fill, out_placements=(pl,), in_placements=(pl,), redistribute_inputs=True,
+                     device_mesh=t.device_mesh)(t)
+
+
+def _unpad_rows(t: torch.Tensor, rp: Optional[_RowPad]) -> torch.Tensor:
+    """``t`` without the rows ``_pad_rows`` added to each shard."""
+    if rp is None:
+        return t
+    pl = _row_placements(t, rp.dims)
+    return local_map(lambda x: x[:rp.rows], out_placements=(pl,), in_placements=(pl,),
+                     redistribute_inputs=True, device_mesh=t.device_mesh)(t)
+
+
+def _padded(batch: Mapping[str, torch.Tensor], rp: Optional[_RowPad]) -> Mapping:
+    """The batch with every leaf's shards padded (tokens, labels,
+    embeddings with zeros, ``loss_mask`` with zeros, made of ones for the
+    real rows where the batch has none)."""
+    if rp is None:
+        return batch
+    out = dict(batch)
+    if "labels" in out and "loss_mask" not in out:
+        out["loss_mask"] = torch.ones_like(out["labels"], dtype=torch.float32)
+    return {k: _pad_rows(v, rp) for k, v in out.items()}
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
@@ -346,8 +409,18 @@ def forward(
 ) -> torch.Tensor:
     """batch: {'tokens' (B,S) | 'embeddings' (B,S,D)} [+ 'img_embed'
     (B,n_img_tokens,D)].  Returns logits (B, S, V) in f32 (or the final
-    hidden states)."""
+    hidden states).  A DTensor batch whose rows the "model" axis cannot
+    split runs padded (``_row_pad``) and comes back without the pad."""
+    rp = _row_pad(batch)
+    return _unpad_rows(_forward(cfg, params, _padded(batch, rp), return_hidden, rp), rp)
+
+
+def _forward(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor],
+             return_hidden: bool, rp: Optional[_RowPad]) -> torch.Tensor:
+    """``forward`` on a batch as ``_padded`` leaves it (``rp`` its padding:
+    the MoE layers route only the real rows)."""
     dt = cdtype(cfg)
+    real = None if rp is None else rp.rows
     x = residual(_inputs(cfg, params, batch))
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int64, device=x.device).expand(B, S)
@@ -365,17 +438,17 @@ def forward(
             x = remat(lambda x, bp=bp: mamba.mamba_block(bp, cfg, x)[0])(x)
             if (i + 1) % cfg.attn_every == 0:
                 # the shared attention block (same params every group)
-                x = residual(_self_block(cfg, x, sp, positions))
+                x = residual(_self_block(cfg, x, sp, positions, real))
     elif cfg.cross_attn_every:
         img = batch["img_embed"].to(dt)
         per = cfg.cross_attn_every - 1
         for g, cp in enumerate(params["cross_blocks"]):
             for bp in blocks[g * per:(g + 1) * per]:
-                x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions))(x)
+                x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions, real))(x)
             x = remat(lambda x, cp=cp: _cross_block(cfg, x, cp, img))(x)
     else:
         for bp in blocks:
-            x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions))(x)
+            x = remat(lambda x, bp=bp: _self_block(cfg, x, bp, positions, real))(x)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x
@@ -423,8 +496,12 @@ def _label_logit(logits: DTensor, labels: torch.Tensor) -> DTensor:
 def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]):
     """The masked mean of -log_softmax at the labels: (loss, {"loss",
     "tokens"}).  ``batch`` adds 'labels' (B, S) and optionally
-    'loss_mask' (B, S) to ``forward``'s inputs."""
-    logits = forward(cfg, params, batch)
+    'loss_mask' (B, S) to ``forward``'s inputs.  A padded batch
+    (``_row_pad``) keeps its pad: the mask leaves the padded rows out of
+    the sum and of its normaliser."""
+    rp = _row_pad(batch)
+    batch = _padded(batch, rp)
+    logits = _forward(cfg, params, batch, False, rp)
     labels = batch["labels"].to(torch.int64)
     if _vocab_sharded(logits):
         # DTensor replicates a log_softmax over a sharded dim (a whole
@@ -445,9 +522,10 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor])
 def prefill(cfg: ModelConfig, params: Params, batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """Prefill: run the stack over the prompt and emit logits for the
     LAST position only, (B, V) in f32."""
-    h = forward(cfg, params, batch, return_hidden=True)
+    rp = _row_pad(batch)
+    h = _forward(cfg, params, _padded(batch, rp), True, rp)
     logits = torch.einsum("bd,dv->bv", h[:, -1, :], params["lm_head"].to(cdtype(cfg)))
-    return logits.to(torch.float32)
+    return _unpad_rows(logits.to(torch.float32), rp)
 
 
 # ----------------------------------------------------------------------

@@ -3,9 +3,15 @@ and channel-mix, with O(1)-state decode.
 
 Mirrors ``repro/models/rwkv.py``.  The WKV recurrence goes through the
 K5 kernel (``kernels.ops.wkv6``) for any sequence length, the state
-carried in and out; the JAX package's chunked matmul form
-(``wkv6_chunked``, its TPU adaptation of the same function) is not
-ported.
+carried in and out.  On the card K5 has two forms, picked by the
+number of steps alone (``kernels.wkv6.wkv6_form``): below
+``CHUNKED_MIN_T`` (128) steps the serial kernel, a block a head walking
+the steps (the decode step, T 1); from it on the chunked kernel, chunks
+of 64 steps at once on the tensor cores and a scan over the chunks
+(training and prefill, T 4096).  The JAX package's chunked matmul form
+(``wkv6_chunked``, its TPU adaptation of the same function, which
+divides by cumulative products of w) is not ported: the chunked kernel
+takes every decay as a product over its own steps.
 """
 from __future__ import annotations
 

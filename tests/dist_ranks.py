@@ -266,15 +266,45 @@ def sharded_configs() -> dict:
         dbrx.moe, capacity_factor=dbrx.moe.n_experts / dbrx.moe.top_k))
     # K5 on batch-sharded inputs: u's gradient sums over the data ranks
     rwkv = reduced(get("rwkv6-7b"), microbatches=2)
-    return {"qwen3": qwen, "qwen3_kv1": qwen_kv1, "dbrx": dbrx, "rwkv6": rwkv}
+    # capacity factor 1 with expert 0 made the first choice of most tokens
+    # (``DROP_ROUTER_BIAS``): its slots overflow the capacity of the whole
+    # batch, and a rank's share of them differs from its tokens' share
+    dbrx_drop = dataclasses.replace(dbrx, moe=dataclasses.replace(dbrx.moe, capacity_factor=1.0))
+    # 3 rows a data rank (``ROWS3_B``), which the 2 "model" ranks do not divide
+    qwen_rows3 = reduced(get("qwen3-14b"), n_heads=8, n_kv_heads=2, kv_shard="replicated",
+                         microbatches=1)
+    return {"qwen3": qwen, "qwen3_kv1": qwen_kv1, "dbrx": dbrx, "rwkv6": rwkv,
+            "dbrx_drop": dbrx_drop, "qwen3_rows3": qwen_rows3}
 
 
-#: the sharded step's batch (each microbatch 2 rows a data rank: DTensor
-#: fails on views of a dim sharded unevenly over "model"), and its decode
-#: cache and position: the cache is long enough for
+#: the sharded step's batch (each microbatch 2 rows a data rank), and its
+#: decode cache and position: the cache is long enough for
 #: ``decode_state_specs`` to shard its sequence over "model", and the
 #: position falls in the second rank's half
 SHARD_B, SHARD_S, SHARD_SMAX, SHARD_POS = 8, 16, 4096, 2100
+#: the rows of ``qwen3_rows3``'s batch: 3 a data rank in its one microbatch
+ROWS3_B = 6
+#: added to the router's column of expert 0 in ``dbrx_drop``: with the
+#: reduced width's normalized inputs, most tokens route to expert 0 first
+DROP_ROUTER_BIAS = 0.5
+
+
+def record_kept(layers, log: list) -> None:
+    """Wrap ``layers._moe_dispatch`` so that every call appends its slots'
+    kept mask in slot order (token-major, then choice) to ``log``: on a
+    rank of the sharded step, its own tokens' slots."""
+    import torch
+
+    dispatch = layers._moe_dispatch
+
+    def wrapped(*args, **kwargs):
+        buf, dest, order, keep = dispatch(*args, **kwargs)
+        kept = torch.zeros(keep.shape, dtype=torch.bool)
+        kept[order] = keep
+        log.append(kept)
+        return buf, dest, order, keep
+
+    layers._moe_dispatch = wrapped
 
 
 def place(tree, mesh, specs):
@@ -298,29 +328,44 @@ def run_sharded(rank: int, world: int, workdir: str) -> dict:
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import lm, partition
+    from repro_torch.models import layers, lm, partition
     from repro_torch.train.optimizer import get_optimizer
     from repro_torch.train.train_step import init_train_state, make_train_step
 
     mesh = make_host_mesh(2, device_type="cpu")
     rng = np.random.default_rng(11)
     tokens = torch.as_tensor(rng.integers(0, 256, (SHARD_B, SHARD_S)), dtype=torch.int32)
-    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
-    dbatch = place(batch, mesh, partition.batch_specs(mesh, batch))
     step_batch = {"tokens": tokens[:, :1]}
     dstep_batch = place(step_batch, mesh, partition.batch_specs(mesh, step_batch))
     gen = lambda: torch.Generator("cpu").manual_seed(2)
     plain = rank == 0
     out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
+    kept: list = []
+    record_kept(layers, kept)
+
+    def init_params(cfg, name):
+        params = lm.init_params(cfg, gen(), device="cpu")
+        if name == "dbrx_drop":
+            with torch.no_grad():
+                for pname, t in params.named_parameters():
+                    if pname.endswith("router"):
+                        t[:, 0] += DROP_ROUTER_BIAS
+        return params
+
     for name, cfg in sharded_configs().items():
         res = out[name] = {}
-        params = lm.init_params(cfg, gen(), device="cpu")
+        rows = tokens if name != "qwen3_rows3" else torch.as_tensor(
+            rng.integers(0, 256, (ROWS3_B, SHARD_S)), dtype=torch.int32)
+        batch = {"tokens": rows, "labels": torch.roll(rows, -1, 1)}
+        dbatch = place(batch, mesh, partition.batch_specs(mesh, batch))
+        params = init_params(cfg, name)
         pspecs = partition.param_specs(params, cfg)
+        kept.clear()
         with implicit_replication():
             res["prefill"] = lm.prefill(cfg, place(params, mesh, pspecs), dbatch).full_tensor()
-        if plain:
-            res["prefill_plain"] = lm.prefill(cfg, params, batch)
         if name == "qwen3_kv1":
+            if plain:
+                res["prefill_plain"] = lm.prefill(cfg, params, batch)
             state = lm.init_decode_state(cfg, SHARD_B, SHARD_SMAX, device="cpu")
             g = torch.Generator("cpu").manual_seed(3)
             for key in ("k", "v"):  # a cache as a prefill would leave it
@@ -350,7 +395,7 @@ def run_sharded(rank: int, world: int, workdir: str) -> dict:
             continue
         opt = get_optimizer(cfg.optimizer)
         specs = {"params": pspecs, "opt": opt.state_specs(pspecs, params), "step": partition.P()}
-        dstate = init_train_state(cfg, gen(), device="cpu")
+        dstate = init_train_state(cfg, device="cpu", params=init_params(cfg, name))
         dstate = {"params": place(dstate["params"], mesh, pspecs),
                   "opt": place(dstate["opt"], mesh, specs["opt"]), "step": 0}
         dstate["params"].requires_grad_(True)
@@ -360,10 +405,17 @@ def run_sharded(rank: int, world: int, workdir: str) -> dict:
         res["metrics"] = {k: metrics[k].full_tensor() for k in ("loss", "grad_norm")}
         res["params"] = {n: p.full_tensor().detach()
                          for n, p in dstate["params"].named_parameters()}
+        # each MoE call's kept mask of this rank's slots: the prefill's,
+        # then the step's forwards
+        res["kept"] = [m.clone() for m in kept]
         if plain:
-            state, metrics = step(init_train_state(cfg, gen(), device="cpu"), batch)
+            kept.clear()
+            res["prefill_plain"] = lm.prefill(cfg, params, batch)
+            state, metrics = step(init_train_state(cfg, device="cpu",
+                                                   params=init_params(cfg, name)), batch)
             res["metrics_plain"] = {k: metrics[k] for k in ("loss", "grad_norm")}
             res["params_plain"] = {n: p.detach() for n, p in state["params"].named_parameters()}
+            res["kept_plain"] = [m.clone() for m in kept]
     dist.destroy_process_group()
     return out
 

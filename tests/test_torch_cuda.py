@@ -25,7 +25,7 @@ from repro_torch.kernels.segment_reduce import segment_sum_cuda, segment_sum_pla
 from repro_torch.kernels.substr_find import (
     MODE_LAUNCHES, exists_before_cuda, exists_before_plain, substr_find_cuda, substr_find_plain,
 )
-from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+from repro_torch.kernels.wkv6 import _wkv6_launch, wkv6_cuda, wkv6_form, wkv6_plain
 from repro_torch.models import lm
 from repro_torch.models.config import reduced
 from repro_torch import sql
@@ -415,6 +415,90 @@ def test_wkv6_kernel_strided_with_state_written_in_place(cuda_device, dtype, T):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,T,D", [(1, 2, 1, 16), (2, 3, 63, 32), (1, 2, 65, 64),
+                                     (2, 2, 200, 128), (1, 3, 129, 16), (1, 4, 300, 64)])
+def test_wkv6_chunked_kernel_matches_plain_with_tiny_decays(cuda_device, dtype, B, H, T, D):
+    """K5's chunked forward (``csrc/wkv6_chunked.cu``, forced at any T:
+    one step, ragged across chunk and sub-chunk boundaries), strided as
+    the model hands it over, w log-uniform down to 1e-12, with and without
+    a state, ``state_out`` aliased to the state and apart; against the
+    plain version within the kernel tolerance, and bit for bit again on a
+    second launch."""
+    rng = np.random.default_rng(T * D + B)
+    heads = lambda a: torch.as_tensor(a, device=cuda_device).to(dtype).transpose(1, 2)
+    r, k, v = (heads(rng.normal(size=(B, T, H, D)) * 0.5) for _ in range(3))
+    w = heads(np.exp(rng.uniform(np.log(1e-12), np.log(0.999), (B, T, H, D))))
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).to(dtype)
+    s0 = torch.as_tensor(rng.normal(size=(B, H, D, D)), device=cuda_device).float()
+    tol = KERNEL_TOL[dtype][0]
+    chunked = lambda *a, **kw: _wkv6_launch("wkv6_chunked", *a, **kw)
+    for state in (None, s0):
+        ops.reset_launches()
+        y, s = chunked(r, k, v, w, u, state)
+        y2, s2 = chunked(r, k, v, w, u, state)
+        assert ops.LAUNCHES["wkv6_chunked"] == 2 and ops.LAUNCHES["wkv6"] == 0
+        y_want, s_want = wkv6_plain(r, k, v, w, u, state)
+        torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+        torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+    kept = s0.clone()
+    alias = s0.clone()
+    y, s = chunked(r, k, v, w, u, alias, state_out=alias)
+    assert s is alias and torch.equal(s0, kept)
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+    other = torch.full_like(s0, float("nan"))
+    _, s = chunked(r, k, v, w, u, s0, state_out=other)
+    assert s is other and torch.equal(s0, kept)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+    # the state and state_out 4 bytes off 16-byte alignment: the scan's
+    # one-element path
+    buf = torch.full((2 * s0.numel() + 1,), float("nan"), device=cuda_device)
+    s_in = buf[1:1 + s0.numel()].view_as(s0).copy_(s0)
+    s_out = buf[1 + s0.numel():].view_as(s0)
+    assert s_in.data_ptr() % 16 and s_out.data_ptr() % 16
+    _, s = chunked(r, k, v, w, u, s_in, state_out=s_out)
+    assert s is s_out and torch.equal(s_in, s0)
+    torch.testing.assert_close(s, s_want, rtol=tol, atol=tol)
+
+
+def test_wkv6_picks_its_form_by_the_steps(cuda_device):
+    """The wrapper launches the serial kernel below
+    CHUNKED_MIN_T steps and the chunked one from it on, and the two agree
+    on the same inputs; a chunked call chained through the state over 2
+    chunks and a remainder equals one call."""
+    from repro_torch.kernels.wkv6 import CHUNK, CHUNKED_MIN_T
+
+    rng = np.random.default_rng(3)
+    B, H, D = 2, 4, 64
+    T = CHUNKED_MIN_T + 2 * CHUNK + 5
+    mk = lambda: torch.as_tensor(rng.normal(size=(B, H, T, D)) * 0.5, device=cuda_device).float()
+    r, k, v = mk(), mk(), mk()
+    w = torch.as_tensor(rng.uniform(0.7, 0.999, (B, H, T, D)), device=cuda_device).float()
+    u = torch.as_tensor(rng.normal(size=(H, D)) * 0.1, device=cuda_device).float()
+    ops.reset_launches()
+    wkv6_cuda(r[:, :, :1], k[:, :, :1], v[:, :, :1], w[:, :, :1], u)
+    wkv6_cuda(r[:, :, :CHUNKED_MIN_T - 1], k[:, :, :CHUNKED_MIN_T - 1],
+              v[:, :, :CHUNKED_MIN_T - 1], w[:, :, :CHUNKED_MIN_T - 1], u)
+    assert ops.LAUNCHES["wkv6"] == 2 and ops.LAUNCHES["wkv6_chunked"] == 0
+    y, s = wkv6_cuda(r, k, v, w, u)
+    assert ops.LAUNCHES["wkv6_chunked"] == 1
+    y_serial, s_serial = _wkv6_launch("wkv6", r, k, v, w, u)
+    tol = KERNEL_TOL[torch.float32][0]
+    torch.testing.assert_close(y, y_serial, rtol=tol, atol=tol)
+    torch.testing.assert_close(s, s_serial, rtol=tol, atol=tol)
+    part = lambda t, a, b: t[:, :, a:b]
+    cut = [0, CHUNK, 2 * CHUNK, T]
+    state, ys = None, []
+    for a, b in zip(cut, cut[1:]):
+        y_p, state = _wkv6_launch("wkv6_chunked", *(part(t, a, b) for t in (r, k, v, w)),
+                                  u, state)
+        ys.append(y_p)
+    torch.testing.assert_close(torch.cat(ys, 2), y, rtol=tol, atol=tol)
+    torch.testing.assert_close(state, s, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Hq,Hkv,Sq,Sk,D", [
     (1, 4, 2, 128, 128, 32), (2, 2, 2, 100, 100, 16), (1, 5, 1, 37, 200, 64),
@@ -505,7 +589,7 @@ def test_lm_path_on_the_card_matches_the_cpu(cuda_device):
         toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 96)))
         ops.reset_launches()
         got = lm.prefill(cfg, card, {"tokens": toks.to(cuda_device)})
-        name = "wkv6" if cfg.family == "rwkv6" else "flash_attention_f32_sm90"
+        name = wkv6_form(toks.shape[1]) if cfg.family == "rwkv6" else "flash_attention_f32_sm90"
         assert ops.LAUNCHES[name] == cfg.n_layers
         want = lm.prefill(cfg, cpu, {"tokens": toks})
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -290,10 +290,25 @@ def test_sharded_steps_on_a_2x2_mesh_equal_the_unsharded(tmp_path):
     weights after one adamw step within 2e-5, which a gradient of the
     wrong sign or size breaks (adamw's first step moves a weight by about
     lr = 3e-4); the position and the cache outside the written slot
-    exactly."""
+    exactly.  Two more cases: DBRX at capacity factor 1 with expert 0
+    made most tokens' first choice, so that slots drop (each MoE call's
+    kept slots, the data ranks' masks in order, equal the unsharded call's
+    exactly); and Qwen3 at 3 rows a data rank, which the 2 "model" ranks do
+    not divide."""
     outs = dist_ranks.run_ranks("sharded", tmp_path)
     assert sorted(out["coord"] for out in outs) == [(0, 0), (0, 1), (1, 0), (1, 1)]
     plain = outs[0]
+    by_coord = {out["coord"]: out for out in outs}
+    for name in ("dbrx", "dbrx_drop"):
+        want = plain[name]["kept_plain"]
+        assert len(want) > 0
+        for m in (0, 1):
+            masks = [by_coord[(d, m)][name]["kept"] for d in (0, 1)]
+            assert len(masks[0]) == len(masks[1]) == len(want)
+            for lo, hi, w in zip(*masks, want):
+                np.testing.assert_array_equal(np.concatenate([lo, hi]), w)
+        dropped = sum(int((~w).sum()) for w in want)
+        assert (dropped > 0) == (name == "dbrx_drop"), (name, dropped)
     close = lambda got, want, tol=1e-5: np.testing.assert_allclose(got, want, rtol=1e-5,
                                                                    atol=tol)
     for out in outs:

@@ -407,7 +407,7 @@ def test_cuda_wrappers_refuse_cpu_tensors_before_any_build():
     with pytest.raises(ValueError, match="CUDA"):
         hash32x2_cuda(torch.zeros((3, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
-        "segment_sum", "substr_find", "wkv6", "flash_attention_sm90",
+        "segment_sum", "substr_find", "wkv6", "wkv6_chunked", "flash_attention_sm90",
         "flash_attention_f32_sm90", "hash32x2", "flash_attention_bwd_sm90",
         "flash_attention_bwd_f32_sm90", "wkv6_bwd")}
     assert MODE_LAUNCHES == {"find": 0, "exists_before": 0}
@@ -466,7 +466,7 @@ def test_plain_versions_launch_nothing_on_cpu():
     ops.exists_before(_t(buf), _t(lens), _t(np.frombuffer(b"a", np.uint8)), _t(np.frombuffer(b"c", np.uint8)))
     ops.hash32x2(torch.zeros((5, 2), dtype=torch.int32))
     assert ops.LAUNCHES == {name: 0 for name in (
-        "segment_sum", "substr_find", "wkv6", "flash_attention_sm90",
+        "segment_sum", "substr_find", "wkv6", "wkv6_chunked", "flash_attention_sm90",
         "flash_attention_f32_sm90", "hash32x2", "flash_attention_bwd_sm90",
         "flash_attention_bwd_f32_sm90", "wkv6_bwd")}
 

@@ -171,6 +171,123 @@ def test_wkv6_without_state_out_leaves_the_state_and_returns_a_new_one():
     torch.testing.assert_close(y2, y1)
 
 
+def _wkv6_chunked_three_phase(r, k, v, w, u, s0, chunk, sub):
+    """A plain float32 twin of ``csrc/wkv6_chunked.cu``'s arithmetic, its
+    products in float32 where the kernel's run on the tensor cores: (1)
+    each chunk's state increment from a zero state and its total decay,
+    walking its sub-chunks; (2) the scan over the chunks, each chunk's
+    starting state kept; (3) each chunk's y from its starting state, the
+    sub-chunks walked again.  Inside a sub-chunk, with P the product of w
+    over its steps before t, Q over its steps after t and W over all,
+    y = (r P) S + A v and S <- diag(W) S + (k Q)^T v, A[t][s] the pairs'
+    sums with the decay from s to t a running product and A[t][t] the u
+    term: every decay a product of w over its own steps, no quotient."""
+    B, H, T, D = r.shape
+    nc = -(-T // chunk)
+    pad = nc * chunk - T
+    fill = lambda x, value: torch.cat([x, torch.full((B, H, pad, D), value)], 2)
+    r, k, v = (fill(x, 0.0) for x in (r, k, v))
+    w = fill(w, 1.0)
+
+    def walk(S, c, y=None):
+        """S through chunk c's sub-chunks; with y, the chunk's outputs too."""
+        W_c = torch.ones((B, H, D))
+        for t0 in range(c * chunk, (c + 1) * chunk, sub):
+            sl = slice(t0, t0 + sub)
+            rs, ks, vs, ws = r[:, :, sl], k[:, :, sl], v[:, :, sl], w[:, :, sl]
+            P, Q = torch.empty((B, H, sub, D)), torch.empty((B, H, sub, D))
+            p, q = torch.ones((B, H, D)), torch.ones((B, H, D))
+            for t in range(sub):
+                P[:, :, t], p = p, p * ws[:, :, t]
+            for t in reversed(range(sub)):
+                Q[:, :, t], q = q, q * ws[:, :, t]
+            if y is not None:
+                A = torch.zeros((B, H, sub, sub))
+                for s in range(sub):
+                    A[:, :, s, s] = (rs[:, :, s] * u * ks[:, :, s]).sum(-1)
+                    d = ks[:, :, s]
+                    for t in range(s + 1, sub):
+                        A[:, :, t, s] = (rs[:, :, t] * d).sum(-1)
+                        d = d * ws[:, :, t]
+                y[:, :, sl] = (rs * P) @ S + A @ vs
+            S = p[..., None] * S + (ks * Q).transpose(-1, -2) @ vs
+            W_c = W_c * p
+        return S, W_c
+
+    zero = torch.zeros((B, H, D, D))
+    steps = [walk(zero, c) for c in range(nc)]  # (1)
+    S = zero if s0 is None else s0
+    starts = []
+    for dS, W_c in steps:  # (2)
+        starts.append(S)
+        S = W_c[..., None] * S + dS
+    y = torch.empty((B, H, nc * chunk, D))
+    for c in range(nc):  # (3)
+        walk(starts[c], c, y)
+    return y[:, :, :T], S
+
+
+@pytest.mark.parametrize("T,chunk,sub,with_state", [
+    (37, 16, 8, True),  # ragged: T not a multiple of the chunk or the sub-chunk
+    (70, 32, 16, False),  # the model's call: no state; three chunks, the last of 6 steps
+    (64, 64, 16, True),  # one whole chunk, the kernel's sizes
+    (131, 64, 16, True),  # the kernel's sizes, ragged across two chunk boundaries
+    (1, 64, 16, False),  # one step
+])
+def test_wkv6_chunked_three_phase_twin_matches_the_recurrence_reference_and_pallas(
+        T, chunk, sub, with_state):
+    """The chunked forward kernel's three phases, rehearsed in float32 on
+    the CPU with w log-uniform down to 1e-12 and a tenth of it exactly 0
+    (where a decay taken as a quotient of cumulative products would
+    overflow or give 0/0), against ``wkv6_plain``, the JAX reference and
+    ``wkv6_pallas`` in interpret mode; the float32 kernel tolerance."""
+    B, H, D = 2, 3, 16
+    r, k, v, _, u = _wkv6_inputs(T + chunk, B, H, T, D)
+    rng = np.random.default_rng(T + sub)
+    w = np.exp(rng.uniform(np.log(1e-12), np.log(0.999), size=(B, H, T, D))).astype(np.float32)
+    w[rng.random(w.shape) < 0.1] = 0.0
+    s0 = rng.normal(size=(B, H, D, D)).astype(np.float32) if with_state else None
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u)]
+    state = None if s0 is None else torch.from_numpy(s0)
+    y, s = _wkv6_chunked_three_phase(*args, state, chunk, sub)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    j = [jnp.asarray(a) for a in (r, k, v, w, u)]
+    j_state = None if s0 is None else jnp.asarray(s0)
+    tol = KERNEL_TOL["float32"][0]
+    for want_y, want_s in (wkv6_plain(*args, state), jref.wkv6_reference(*j, state=j_state),
+                           wkv6_pallas(*j, j_state, bt=T)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=tol, atol=tol)
+        np.testing.assert_allclose(s.numpy(), np.asarray(want_s), rtol=tol, atol=tol)
+
+
+def test_wkv6_form_is_a_function_of_the_steps_alone():
+    """The serial kernel below CHUNKED_MIN_T steps (the decode step's T 1
+    among them), the chunked one from it on, whatever the other sizes;
+    the chunked kernel's scratch holds each chunk's state and decay."""
+    from repro_torch.kernels import wkv6 as tw
+
+    assert tw.FORWARD_FORMS == ("wkv6", "wkv6_chunked")
+    assert tw.wkv6_form(1) == "wkv6"
+    assert tw.wkv6_form(tw.CHUNKED_MIN_T - 1) == "wkv6"
+    assert tw.wkv6_form(tw.CHUNKED_MIN_T) == "wkv6_chunked"
+    assert tw.wkv6_form(4096) == "wkv6_chunked"
+    assert {tw.wkv6_form(T) for T in range(1, 3 * tw.CHUNKED_MIN_T)} == set(tw.FORWARD_FORMS)
+    assert all(tw.wkv6_form(T) == tw.wkv6_form(T + 1) for T in range(1, 8192)
+               if T + 1 != tw.CHUNKED_MIN_T)
+    assert tw.chunked_scratch_size(1, 64, 4096, 64) == 64 * 64 * (64 * 64 + 64)
+    assert tw.chunked_scratch_size(2, 3, 65, 16) == 2 * 3 * 2 * (16 * 16 + 16)
+    # the form is taken before any check of the tensors: CPU tensors are
+    # refused as the serial kernel refused them, with no build and no launch
+    ops.reset_launches()
+    x = torch.zeros((1, 2, tw.CHUNKED_MIN_T, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tw.wkv6_cuda(x, x, x, x, torch.zeros((2, 16)))
+    for form in tw.FORWARD_FORMS:
+        with pytest.raises(ValueError, match="CUDA"):
+            tw._wkv6_launch(form, x, x, x, x, torch.zeros((2, 16)))
+    assert sum(ops.LAUNCHES.values()) == 0
+
+
 # ----------------------------------------------------------------------
 # K4: flash attention
 # ----------------------------------------------------------------------
@@ -231,7 +348,7 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     y2, s2 = tref.wkv6_reference(r, kk, vv, w, u)
     torch.testing.assert_close(y, y2)
     torch.testing.assert_close(s, s2)
-    assert ops.LAUNCHES["flash_attention_f32_sm90"] == 0 and ops.LAUNCHES["wkv6"] == 0
+    assert sum(ops.LAUNCHES.values()) == 0
     assert ops.LAUNCHES["flash_attention_sm90"] == 0
 
 

@@ -112,7 +112,7 @@ def test_cpu_main_path_launches_no_kernel(data):
     for qname in ("q1", "q13", "q18"):
         QF.ALL[qname](frames, sf=SF, apply_limit=False)
     assert ops.LAUNCHES == {name: 0 for name in (
-        "segment_sum", "substr_find", "wkv6", "flash_attention_sm90",
+        "segment_sum", "substr_find", "wkv6", "wkv6_chunked", "flash_attention_sm90",
         "flash_attention_f32_sm90", "hash32x2", "flash_attention_bwd_sm90",
         "flash_attention_bwd_f32_sm90", "wkv6_bwd")}
 
