@@ -179,6 +179,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    mesh=)`` predicts the sharded train step's peak, printed beside
    ``torch.cuda.max_memory_allocated`` and their ratio, which must lie
    in [0.8, 1.25];
+14. (run after phase 13) the six example twins (``repro_torch.examples``)
+   on the card at their scripts' own sizes, each beside a run on the
+   CPU: ``quickstart`` (its filtered count and revenue table),
+   ``sql_quickstart`` (its three results) and ``tpch_analytics`` (the 22
+   queries at SF 0.01) equal to the CPU's (ints, codes and order exactly,
+   floats within rtol 1e-8); ``serve_lm`` serving 12 of 12 requests,
+   each to its ``max_new``, on both (tokens equal to the CPU's counted);
+   ``train_lm`` (about 100 M parameters, ``EXAMPLE_TRAIN_STEPS`` of the
+   script's 300 steps)
+   with its loss falling and a checkpoint written; ``distributed_groupby``
+   at world 1 (a one-rank NCCL group, then a gloo one on the CPU): the
+   semi join's count and the shuffle exactly the CPU's, the float32
+   group sums within 1e-3 of ``np.add.at``'s and of the CPU's; K1 and K2
+   must launch in ``quickstart`` and ``tpch_analytics``, K1 in
+   ``distributed_groupby``, K4 forward and backward in ``train_lm``; one
+   JSON line of each twin's wall seconds and kernel launches;
 9. (run after phase 4) TPC-DS and storage: the five TPC-DS queries at SF
    1 from ``--seed`` on frames on the card, twice (cold and warm; each
    query that groups must launch the segment sum; pass 2 held to pass 1),
@@ -195,7 +211,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``customer`` through ``write_csv`` / ``read_csv``; one traced q3 with
    its join spans;
 5. one JSON line of the compiled pass (phase 3e), one of phase 10, one
-   of phase 11, one of phase 12, one of phase 13 (each kernel's launches
+   of phase 11, one of phase 12, one of phase 14, one of phase 13 (each kernel's launches
    on DTensors also in the kernels line, ``launches_sharded``), one of
    the SQL pass's launches (phase
    3d), one JSON line describing every kernel (its launches those of its
@@ -323,6 +339,24 @@ CAPPED_TIMEOUT_S = 900
 STORE_YEAR = 2000
 #: the kernels of training's backward (no TPU counterpart)
 BACKWARD_KERNELS = ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90", "wkv6_bwd")
+#: phase 14: the phase's budget in seconds, and ``train_lm``'s steps: 100
+#: of the script's 300, since its eager step is host-bound (about 230 to
+#: 385 ms on the card) and 300 steps alone took 115 s
+EXAMPLES_BUDGET_S = 90.0
+EXAMPLE_TRAIN_STEPS = 100
+SCRIPT_TRAIN_STEPS = 300
+#: phase 14: the kernels each twin must launch on the card (a tuple: any
+#: one of its forms)
+EXAMPLE_KERNELS = {
+    "quickstart": (("segment_sum",), ("substr_find",)),
+    "tpch_analytics": (("segment_sum",), ("substr_find",)),
+    "distributed_groupby": (("segment_sum",),),
+    "train_lm": (("flash_attention_sm90", "flash_attention_f32_sm90"),
+                 ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90")),
+}
+#: phase 14: the float32 group sums of ``distributed_groupby`` against
+#: ``np.add.at``'s and the CPU's (the script's own ``max_err`` check)
+EXAMPLE_SUM_TOL = 1e-3
 
 
 #: the script's start, which each phase's header line counts from
@@ -3690,6 +3724,107 @@ def sharded_steps(torch, ops, dev, seed: int) -> dict:
     return out
 
 
+def examples_phase(torch, ops, dev) -> dict:
+    """Phase 14: the six example twins on the card, each held to a run on
+    the CPU (see the module docstring)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import dframe
+    from repro_torch.examples import (
+        distributed_groupby, quickstart, serve_lm, sql_quickstart, tpch_analytics, train_lm,
+    )
+
+    log(f"phase 14: the six example twins on the card, each held to a CPU run "
+        f"(train_lm cut to {EXAMPLE_TRAIN_STEPS} of the script's {SCRIPT_TRAIN_STEPS} steps "
+        f"to fit the phase's {EXAMPLES_BUDGET_S:.0f} s)")
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def on_card(name, fn):
+        ops.reset_launches()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        runs[name] = {"wall_s": time.perf_counter() - t,
+                      "launches": {k: v for k, v in ops.LAUNCHES.items() if v}}
+        for forms in EXAMPLE_KERNELS.get(name, ()):
+            if not any(runs[name]["launches"].get(k) for k in forms):
+                raise AssertionError(f"{name} launched none of {forms} on the card")
+        log(f"  {name}: {runs[name]['wall_s']:.3f} s on the card, launches "
+            f"{json.dumps(runs[name]['launches'])}")
+        return res
+
+    card = on_card("quickstart", lambda: quickstart.run(dev))
+    cpu = quickstart.run("cpu")
+    if card["results"]["filtered"] != cpu["results"]["filtered"]:
+        raise AssertionError("quickstart: filtered rows differ from the CPU's")
+    compare_results("quickstart top", card["results"]["top"], cpu["results"]["top"])
+
+    card = on_card("sql_quickstart", lambda: sql_quickstart.run(dev))
+    cpu = sql_quickstart.run("cpu")
+    for key, want in cpu["results"].items():
+        compare_results(f"sql_quickstart {key}", card["results"][key], want)
+
+    card = on_card("tpch_analytics", lambda: tpch_analytics.run(device=dev))
+    cpu = tpch_analytics.run(device="cpu")
+    for q, want in cpu["results"].items():
+        compare_results(f"tpch_analytics {q}", card["results"][q], want)
+    runs["tpch_analytics"]["query_ms"] = card["ms"]
+
+    card = on_card("serve_lm", lambda: serve_lm.run(dev))
+    cpu = serve_lm.run("cpu")
+    for label, out in (("card", card), ("CPU", cpu)):
+        reqs = out["requests"]
+        if not all(r.done and len(r.out) == r.max_new for r in reqs) or len(reqs) != 12:
+            raise AssertionError(f"serve_lm on the {label}: not every request served to its "
+                                 f"max_new: {out['lines'][0]}")
+    runs["serve_lm"]["tokens_equal_cpu"] = sum(
+        a == b for r, c in zip(card["requests"], cpu["requests"]) for a, b in zip(r.out, c.out))
+    runs["serve_lm"]["tokens"] = sum(len(r.out) for r in cpu["requests"])
+
+    ckpt = ROOT / "build" / "examples_train_lm"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    card = on_card("train_lm", lambda: train_lm.run(EXAMPLE_TRAIN_STEPS, str(ckpt), dev))
+    losses = card["losses"]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train_lm: loss {losses[0]} -> {losses[-1]} did not fall")
+    if not (ckpt / f"step_{EXAMPLE_TRAIN_STEPS:08d}").is_dir():
+        raise AssertionError(f"train_lm wrote no checkpoint of step {EXAMPLE_TRAIN_STEPS}")
+    runs["train_lm"].update(steps=EXAMPLE_TRAIN_STEPS, first_loss=losses[0],
+                            last_loss=losses[-1], loop_s=card["seconds"])
+    for line in card["lines"]:
+        log(f"    {line}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def groupby_run(device):
+        mesh = dframe.init_local(device, timeout=distributed_groupby.TIMEOUT)
+        try:
+            return distributed_groupby.run(mesh, device)
+        finally:
+            dist.destroy_process_group()
+
+    card = on_card("distributed_groupby", lambda: groupby_run(dev))
+    cpu = groupby_run("cpu")
+    for key in ("matched", "expected_matched", "preserved", "dropped"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"distributed_groupby: {key} {card[key]} != the CPU's {cpu[key]}")
+    if card["matched"] != card["expected_matched"] or card["dropped"] != 0:
+        raise AssertionError(f"distributed_groupby: {card['lines']}")
+    cpu_err = float(np.abs(card["sums"] - cpu["sums"]).max())
+    if card["max_err"] > EXAMPLE_SUM_TOL or cpu_err > EXAMPLE_SUM_TOL:
+        raise AssertionError(f"distributed_groupby: sums off by {card['max_err']} from "
+                             f"np.add.at, {cpu_err} from the CPU's")
+    runs["distributed_groupby"].update(max_err=card["max_err"], max_err_vs_cpu=cpu_err)
+
+    wall = time.perf_counter() - t_phase
+    log(f"  phase 14 wall {wall:.3f} s (budget {EXAMPLES_BUDGET_S:.0f} s"
+        f"{'' if wall <= EXAMPLES_BUDGET_S else ': over it'})")
+    return {"twins": runs, "train_steps": EXAMPLE_TRAIN_STEPS, "wall_s": wall,
+            "device": gpu_name_power()}
+
+
 def compare_results(q: str, got: dict, want: dict, rtol: float = QUERY_RTOL) -> bool:
     """The same columns, ints, codes and rows exact, floats within ``rtol``
     (NaN equal to NaN); returns whether every bit held."""
@@ -3854,6 +3989,8 @@ def main() -> int:
     train_runs = train_phase(torch, ops, dev, args.seed)
     # phase 13: the sharded dry run, and K4 and K5 under DTensor
     sharded_run = sharded_phase(torch, ops, dev, args.seed)
+    # phase 14: the example twins on the card
+    examples_run = examples_phase(torch, ops, dev)
     # launches of each kernel in its main-path run: K4's bf16 kernel in
     # Qwen3-14B's prefill, its f32 kernel in the reduced f32 Qwen3-14B
     # prefill of phase 7, K5 in RWKV6-7B's serving run, K3 in its one call
@@ -3949,6 +4086,7 @@ def main() -> int:
     log(json.dumps({"sql_serving": serve_run}))
     log(json.dumps({"distributed": dist_run}))
     log(json.dumps({"sharded": sharded_run}))
+    log(json.dumps({"examples": examples_run}))
     log(json.dumps({"sql_launches": sql_run["launches"],
                     "segment_sum_by_path_pass1": sql_run["by_path"],
                     "substr_find_by_form_pass1": sql_run["by_form"]}))

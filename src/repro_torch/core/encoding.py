@@ -65,3 +65,8 @@ def shared_codes_numeric(
 
 def is_string_like(arr: np.ndarray) -> bool:
     return arr.dtype.kind in ("U", "S", "O")
+
+
+def cardinality_ratio(values: np.ndarray) -> float:
+    n = max(1, values.shape[0])
+    return float(np.unique(values).shape[0]) / float(n)

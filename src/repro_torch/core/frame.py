@@ -50,6 +50,9 @@ from .config import CONFIG, resolve_device
 from . import encoding
 
 INT = torch.int64
+# Sentinel stored in int/code slots of null cells (the hidden validity
+# column is authoritative; the sentinel just keeps gathers in-range).
+INT_NULL = np.int64(-1)
 
 VALID_PREFIX = "__v__"
 
@@ -84,6 +87,9 @@ class ColumnMeta:
     slot: int  # slot in itensor (int-like kinds) or ftensor ('float'); -1 for 'obj'
     dictionary: Optional[np.ndarray] = None  # sorted uniques for 'dict'
     block: int = 0  # RowView block index (0 when the frame is eager)
+
+    def is_int_like(self) -> bool:
+        return self.kind in ("int", "bool", "date", "dict")
 
 
 @dataclasses.dataclass

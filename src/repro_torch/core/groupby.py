@@ -9,13 +9,15 @@ Group-By):
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from . import hashing
 from .agg import normalize_specs, segment_agg, segment_min
-from .frame import INT, TensorFrame
+from .config import resolve_device
+from .frame import INT, TensorFrame, host
 
 
 class GroupBy:
@@ -88,3 +90,56 @@ def nunique_column(frame: TensorFrame, name: str) -> int:
     if not frame.has_nulls(name):
         frame.set_stats(name, unique=(m == frame.nrows), distinct=m)
     return m
+
+
+# ----------------------------------------------------------------------
+# Fig. 11 ablation baselines (benchmark-only)
+# ----------------------------------------------------------------------
+def incremental_group_ids(cols: Sequence[np.ndarray]) -> np.ndarray:
+    """Alg. 1: per-column incremental sparse-to-dense composite building
+    (the Pandas strategy).  n re-densifications of the running key.
+    Host numpy, as in the JAX package: the baseline the figure times."""
+    n = cols[0].shape[0]
+    ids = np.zeros(n, dtype=np.int64)
+    for c in cols:
+        _, cc = np.unique(c, return_inverse=True)
+        card = cc.max() + 1 if n else 1
+        pairs = ids * np.int64(card) + cc
+        _, ids = np.unique(pairs, return_inverse=True)
+    return ids
+
+
+def pydict_group_ids(cols: Sequence[np.ndarray]) -> np.ndarray:
+    """'PandasMojo' analog: row-by-row tuple keys through a Python dict
+    (what Mojo's deep-copying Dict forces; Fig. 11 right).  Host Python,
+    as in the JAX package."""
+    n = cols[0].shape[0]
+    ids = np.empty(n, dtype=np.int64)
+    seen: Dict[tuple, int] = {}
+    hosted = [np.asarray(c) for c in cols]
+    for i in range(n):
+        key = tuple(c[i] for c in hosted)
+        gid = seen.get(key)
+        if gid is None:
+            gid = len(seen)
+            seen[key] = gid
+        ids[i] = gid
+    return ids
+
+
+def transposed_group_ids(cols: Sequence[np.ndarray], device=None) -> np.ndarray:
+    """Alg. 2 key-building in isolation (for the operator benchmark):
+    one-pass packed composite + sort-based distinct, on ``device``
+    (default ``CONFIG.device``).  Returns the group ids as numpy."""
+    dev = resolve_device(device)
+    arrs = [torch.as_tensor(np.asarray(c).astype(np.int64), device=dev) for c in cols]
+    packed = torch.zeros(arrs[0].shape, dtype=INT, device=dev)
+    if arrs[0].shape[0]:
+        # all k cardinalities in ONE device fetch
+        cards = host(torch.stack([a.max() for a in arrs])) + 1
+    else:
+        cards = np.ones((len(arrs),), dtype=np.int64)
+    for a, card in zip(arrs, cards):
+        packed = packed * max(1, int(card)) + a
+    _, gids, _ = hashing.distinct(packed)
+    return host(gids)

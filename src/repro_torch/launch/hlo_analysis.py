@@ -18,6 +18,8 @@ shards:
   every operation's (``op_bytes``: tensor inputs read and outputs
   written, views excluded; the eager step fuses nothing), the kernels'
   (``kernel_bytes``), and the reference's ``giant_bytes`` rule;
+- the calls of each aten operation by its overload-packet name
+  (``op_calls``; ``count_op`` reads it);
 - the peak of live memory: the storages of the rank's local tensors,
   the step's inputs from the start, each freed when its storage is
   (torch's ``MemTracker``, on the card machine's torch 2.11, also
@@ -100,6 +102,8 @@ class StepCounter(TorchDispatchMode):
         self.coll_calls: Dict[str, int] = defaultdict(int)
         #: (kind, process group name) -> operand bytes
         self.by_group: Dict[Tuple[str, str], int] = defaultdict(int)
+        #: aten overload-packet name -> calls
+        self.op_calls: Dict[str, int] = defaultdict(int)
         self._live: Dict[int, int] = {}  # storage -> bytes, of live local tensors
         self.live_bytes = 0
         self.peak_bytes = 0
@@ -124,15 +128,16 @@ class StepCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented  # DTensor turns it into local ops, seen below
         out = func(*args, **kwargs)
-        if func.is_view:
-            return out  # moves and computes nothing
         ins = _tensors(args, _tensors(kwargs.values()))
         outs = _tensors(out if isinstance(out, (list, tuple)) else (out,))
         if any(isinstance(t, FakeTensor) for t in ins + outs):
             return out  # DTensor's sharding propagation, not the rank's work
+        ns, name = func.namespace, func._overloadpacket.__name__
+        self.op_calls[name] += 1
+        if func.is_view:
+            return out  # moves and computes nothing
         for t in outs:
             self.track(t)
-        ns, name = func.namespace, func._overloadpacket.__name__
         if ns in ("_c10d_functional", "c10d_functional", "_dtensor") and name in _KINDS:
             kind, nbytes = _KINDS[name], sum(_nbytes(t) for t in ins)
             group = [a for a in (*args, *kwargs.values()) if isinstance(a, str)][-1]
@@ -208,7 +213,24 @@ def analyze(step: Callable[[], Any], inputs: Any) -> Tuple[Any, Dict[str, Any]]:
         "collective_calls": {k: int(v) for k, v in counter.coll_calls.items()},
         "coll_total": sum(coll.values()),
         "by_group": dict(counter.by_group),
+        "op_calls": dict(counter.op_calls),
         "kernels": {k: dict(v) for k, v in build.FAKE_COSTS.items()},
         "peak_bytes": int(peak),
     }
     return result, counts
+
+
+def collective_bytes(counts: Dict[str, Any]) -> Dict[str, int]:
+    """Collective operand bytes per kind plus ``"total"``, the keys of the
+    JAX package's helper of this name, read from the counts ``analyze``
+    returns (the port has no HLO text to read them from)."""
+    out = {k: int(v) for k, v in counts["collectives"].items()}
+    out["total"] = int(counts.get("coll_total", 0))
+    return out
+
+
+def count_op(counts: Dict[str, Any], opname: str) -> int:
+    """How often the aten operation ``opname`` (its overload-packet name,
+    e.g. ``"mm"``) ran in the step ``analyze`` counted; the JAX package's
+    helper of this name counts instructions in HLO text instead."""
+    return int(counts["op_calls"].get(opname, 0))

@@ -10,8 +10,9 @@ the steps (the decode step, T 1); from it on the chunked kernel, chunks
 of 64 steps at once on the tensor cores and a scan over the chunks
 (training and prefill, T 4096).  The JAX package's chunked matmul form
 (``wkv6_chunked``, its TPU adaptation of the same function, which
-divides by cumulative products of w) is not ported: the chunked kernel
-takes every decay as a product over its own steps.
+divides by cumulative products of w) is kept in plain torch for
+comparison only: ``rwkv_block`` does not call it, and the chunked kernel
+takes every decay as a product over its own steps instead.
 """
 from __future__ import annotations
 
@@ -70,6 +71,56 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     if prev is None:
         prev = torch.zeros_like(x[:, :1])
     return torch.cat([prev, x[:, :-1]], dim=1)
+
+
+def wkv6_chunked(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor, u: torch.Tensor,
+    state: Optional[torch.Tensor] = None, chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked-parallel WKV (the FLA-style matmul form), in plain torch.
+
+    r/k/v/w: (B, H, T, hd); u: (H, hd); state: (B, H, hd, hd) f32.
+      y_t = r_t @ S_{t-1} + (r_t . (u k_t)) v_t
+      S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    Within a chunk: P_t = prod_{s<=t} w_s;
+      y = ((r*P_prev) Kd^T ∘ mask) V + (r*P_prev) @ S0 + diag-term
+      with Kd rows k_s / P_s (exact; chunk kept short for conditioning).
+    Returns (y in r's dtype, the final state in float32).
+    """
+    B, H, T, hd = r.shape
+    assert T % chunk == 0, (T, chunk)
+    if state is None:
+        state = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    nchunks = T // chunk
+
+    def to_chunks(x):
+        return x.to(torch.float32).reshape(B, H, nchunks, chunk, hd)
+
+    rc, kc, vc, wc = map(to_chunks, (r, k, v, w))
+    uf = u.to(torch.float32)
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=r.device),
+                      diagonal=-1)
+    S = state
+    ys = []
+    for c in range(nchunks):
+        rr, kk, vv, ww = rc[:, :, c], kc[:, :, c], vc[:, :, c], wc[:, :, c]  # (B,H,C,hd)
+        logw = torch.log(torch.clamp(ww, min=1e-12))
+        P = torch.exp(torch.cumsum(logw, dim=2))  # (B,H,C,hd) prod_{s<=t}
+        P_prev = P / ww  # prod_{s<t}
+        r_d = rr * P_prev
+        k_d = kk / torch.clamp(P, min=1e-30)
+        att = torch.einsum("bhti,bhsi->bhts", r_d, k_d) * mask  # s<t strictly
+        diag = torch.einsum("bhti,hi,bhti->bht", rr, uf, kk)
+        ys.append(
+            torch.einsum("bhts,bhsj->bhtj", att, vv)
+            + torch.einsum("bhti,bhij->bhtj", r_d, S)
+            + diag[..., None] * vv
+        )
+        S = P[:, :, -1, :, None] * S + torch.einsum(
+            "bhti,bhtj->bhij", k_d * P[:, :, -1:, :], vv
+        )
+    y = torch.stack(ys, dim=2).reshape(B, H, T, hd)
+    return y.to(r.dtype), S
 
 
 def rwkv_block(

@@ -1,12 +1,13 @@
 """Child processes of the multi-rank tests of ``repro_torch.dist``,
 ``repro_torch.models.partition`` and the model's sharded step
 (tests/test_torch_dist.py, tests/test_torch_partition.py,
-tests/test_torch_dryrun.py), and the seeded inputs both packages get.
+tests/test_torch_dryrun.py) and of the distributed group-by example
+(tests/test_torch_examples.py), and the seeded inputs both packages get.
 
-    python tests/dist_ranks.py ops|reshard|sharded RANK WORLD WORKDIR
+    python tests/dist_ranks.py ops|reshard|sharded|example RANK WORLD WORKDIR
     python tests/dist_ranks.py jax WORKDIR
 
-``ops``, ``reshard`` and ``sharded`` run one gloo rank of a world of WORLD, joined
+``ops``, ``reshard``, ``sharded`` and ``example`` run one gloo rank of a world of WORLD, joined
 through a ``FileStore`` in WORKDIR (no port) on the loopback device,
 each collective bounded by ``GLOO_TIMEOUT``, and write the rank's
 outputs to ``WORKDIR/<scenario>-<rank>.pkl``; ``jax`` computes the JAX
@@ -207,6 +208,18 @@ def run_ops(rank: int, world: int, workdir: str) -> dict:
     out["routed"], out["local"] = routed, local
     dist.destroy_process_group()
     return out
+
+
+def run_example(rank: int, world: int, workdir: str) -> dict:
+    """``repro_torch.examples.distributed_groupby``'s ops on this rank."""
+    _, dist = _join(rank, world, workdir)
+    from repro_torch.dist.dframe import data_mesh
+    from repro_torch.examples import distributed_groupby
+
+    try:
+        return distributed_groupby.run(data_mesh(), "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 def run_reshard(rank: int, world: int, workdir: str) -> dict:
@@ -472,7 +485,8 @@ def main(argv) -> int:
         run_jax(argv[1])
         return 0
     scenario, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), argv[3]
-    out = {"ops": run_ops, "reshard": run_reshard, "sharded": run_sharded}[scenario](
+    out = {"ops": run_ops, "reshard": run_reshard, "sharded": run_sharded,
+           "example": run_example}[scenario](
         rank, world, workdir)
     with open(os.path.join(workdir, f"{scenario}-{rank}.pkl"), "wb") as f:
         pickle.dump(_to_numpy(out), f)
