@@ -37,15 +37,23 @@ consulted by ``join(algorithm="auto")``.
 
 Tensors are never updated in place once a frame holds them: column
 accessors return views into the payload.
+
+Observability (``repro_torch.obs``): ``to_dict`` is the ``frame.to_host``
+span; the native counter ``frame.d2h_copies`` counts every copy of
+device values to the host through ``host()`` (and the compiled SQL
+path's row-count read); the ``core.load`` group's ``factorize_s`` times
+``from_arrays``' host factorization of string columns.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .. import obs
 from .config import CONFIG, resolve_device
 from . import encoding
 
@@ -69,8 +77,27 @@ def float_dtype() -> torch.dtype:
     return getattr(torch, CONFIG.float_dtype)
 
 
+#: Loading's host work, read through ``obs.metrics`` as ``core.load``.
+LOAD_STATS = {"factorize_s": 0.0}
+
+
+def _reset_load_stats() -> None:
+    LOAD_STATS.update(factorize_s=0.0)
+
+
+obs.metrics.register_group("core.load", lambda: dict(LOAD_STATS), _reset_load_stats)
+
+_D2H_COPIES = obs.metrics.counter("frame.d2h_copies")
+
+
+def count_d2h() -> None:
+    """Count one copy from the device to the host."""
+    _D2H_COPIES.inc()
+
+
 def host(t: torch.Tensor) -> np.ndarray:
-    """A tensor's values as a host numpy array."""
+    """A tensor's values as a host numpy array (one counted copy)."""
+    count_d2h()
     return t.detach().cpu().numpy()
 
 
@@ -513,7 +540,9 @@ class TensorFrame:
                 if forced == "obj":
                     offloaded[name] = _offload(arr, dev)
                     continue
+                t0 = time.perf_counter()
                 codes, dictionary = encoding.factorize(arr)
+                LOAD_STATS["factorize_s"] += time.perf_counter() - t0
                 if forced == "dict" or dictionary.shape[0] <= threshold * max(1, n):
                     int_cols.append((name, codes, "dict", dictionary))
                 else:
@@ -759,7 +788,9 @@ class TensorFrame:
         return raw
 
     def to_dict(self) -> Dict[str, np.ndarray]:
-        return {name: self.column(name) for name in self.column_names}
+        names = self.column_names
+        with obs.span("frame.to_host", rows=self.nrows, columns=len(names)):
+            return {name: self.column(name) for name in names}
 
     def __len__(self) -> int:
         return self.nrows

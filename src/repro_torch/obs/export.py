@@ -2,7 +2,9 @@
 
 ``export_chrome_trace(path)`` writes the recorded spans as complete
 ("ph": "X") trace events — open the file at https://ui.perfetto.dev or
-chrome://tracing to see per-thread operator timelines.
+chrome://tracing to see per-thread operator timelines.  Timestamps are
+on the epoch clock, as ``torch.profiler``'s events are (its own
+``export_chrome_trace`` writes them less its ``baseTimeNanoseconds``).
 
 ``export_json()`` returns the machine-readable profile: an
 operator-time breakdown aggregated by span name (count, total/self
@@ -47,7 +49,7 @@ def export_chrome_trace(
                 "name": s.name,
                 "cat": s.name.split(".", 1)[0],
                 "ph": "X",
-                "ts": s.start_ns / 1e3,  # microseconds
+                "ts": (s.start_ns + _trace.EPOCH_OFFSET_NS) / 1e3,  # epoch us
                 "dur": s.dur_ns / 1e3,
                 "pid": pid,
                 "tid": s.tid,

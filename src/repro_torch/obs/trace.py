@@ -15,17 +15,27 @@ Toggled by ``CONFIG.tracing``:
 - ``"detailed"``: additionally records per-chunk spans
   (``detailed_span``), such as retry backoffs.
 
-This module imports no torch; ``CONFIG`` is resolved lazily on first
-use, mirroring ``repro_torch.store.spill``.
+While a span records and a ``torch.profiler`` session is recording, the
+span also opens a profiler record of its own name, closed with it, so
+the profiler's timeline (host and device, on the epoch clock) names the
+program's layers.  ``SpanRecord.start_ns`` stays on ``perf_counter_ns``
+(``mark_ns()`` floors are on that clock); ``EPOCH_OFFSET_NS`` moves it
+onto the profiler's epoch clock.
+
+This module imports no torch: the profiler is looked up in
+``sys.modules``, and ``CONFIG`` is resolved lazily on first use,
+mirroring ``repro_torch.store.spill``.
 """
 from __future__ import annotations
 
 import itertools
+import sys
 import threading
 import time
 from typing import Any, Dict, List, NamedTuple, Optional
 
 __all__ = [
+    "EPOCH_OFFSET_NS",
     "SpanRecord",
     "annotate",
     "clear",
@@ -52,6 +62,11 @@ def _cfg():
 #: Per-thread ring capacity (spans).  A full ring overwrites its oldest
 #: records and counts them in ``dropped``.
 CAPACITY = 1 << 16
+
+#: ``time_ns() - perf_counter_ns()``, taken once at import: a span's
+#: ``start_ns`` plus this is its start on the epoch clock, the clock of
+#: ``torch.profiler``'s events.
+EPOCH_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
 _IDS = itertools.count(1)  # next() is atomic under the GIL
 _LOCK = threading.Lock()
@@ -125,8 +140,19 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
+def _profiler_record(name: str):
+    """An entered ``torch.profiler`` record of ``name`` while a profiler
+    records in this process, else None.  Never imports torch."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    rec = torch._C._profiler._RecordFunctionFast(name)
+    rec.__enter__()
+    return rec
+
+
 class _Span:
-    __slots__ = ("name", "attrs", "t0", "span_id", "parent_id")
+    __slots__ = ("name", "attrs", "t0", "span_id", "parent_id", "rec")
 
     def __init__(self, name: str, attrs: Optional[Dict[str, Any]]) -> None:
         self.name = name
@@ -143,11 +169,14 @@ class _Span:
         self.parent_id = st.stack[-1].span_id if st.stack else 0
         self.span_id = next(_IDS)
         st.stack.append(self)
+        self.rec = _profiler_record(self.name)
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.perf_counter_ns()
+        if self.rec is not None:
+            self.rec.__exit__(None, None, None)
         st = _STATE
         if st.stack and st.stack[-1] is self:
             st.stack.pop()

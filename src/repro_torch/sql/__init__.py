@@ -22,11 +22,20 @@ Public API::
 Queries run on the device of the frames in ``scope``; raw dict-of-numpy
 entries and store tables materialize on ``device=`` (default
 ``CONFIG.device``, the card; ``device="cpu"`` asks for the CPU).
+
+Under ``CONFIG.tracing`` each ``execute`` is one ``sql.execute`` span,
+the root of every span of the query: ``sql.parse``, ``sql.plan`` and
+``sql.optimize`` (the front end), then the compiled path's
+``sql.compile.prepare`` / ``sql.compile.execute`` or the op-by-op
+``sql.exec.<Node>`` spans.  Its ``route`` attribute says which path ran:
+``compiled_hit``, ``compiled_miss`` (both with the plan's ``digest``),
+``fallback`` (the compiled path declined) or ``op_by_op`` (not tried).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from .. import obs
 from .parser import SqlError, parse
 from .plan import build_plan, format_plan
 from .optimize import decorrelate as _decorrelate
@@ -53,9 +62,13 @@ def plan_query(query: str, scope: Dict, *, optimized: bool = True):
     (sargable conjuncts move into the Scan and are answered with zone
     maps).
     """
-    plan = build_plan(parse(query), scope_catalog(scope))
+    with obs.span("sql.parse"):
+        tree = parse(query)
+    with obs.span("sql.plan"):
+        plan = build_plan(tree, scope_catalog(scope))
     if optimized:
-        return _optimize(plan, store_tables=store_table_names(scope))
+        with obs.span("sql.optimize"):
+            return _optimize(plan, store_tables=store_table_names(scope))
     return plan
 
 
@@ -80,22 +93,28 @@ def execute(
     card before its clock stops, so analyzed timings attribute work
     but are not production latencies.
     """
-    frames = scope_frames(scope, device)
-    plan = plan_query(query, frames, optimized=False)
-    if explain is not None:
-        if explain != "analyze":
-            raise SqlError(
-                f"unsupported explain mode {explain!r} (expected 'analyze')"
-            )
-        from .analyze import run_analyze
+    with obs.span("sql.execute", route="op_by_op") as sp:
+        frames = scope_frames(scope, device)
+        plan = plan_query(query, frames, optimized=False)
+        if explain is not None:
+            if explain != "analyze":
+                raise SqlError(
+                    f"unsupported explain mode {explain!r} (expected 'analyze')"
+                )
+            from .analyze import run_analyze
 
-        plan = _optimize(plan, store_tables=store_table_names(frames))
-        return run_analyze(plan, frames, device=device)
-    if optimize:
-        plan = _optimize(plan, store_tables=store_table_names(frames))
-        return execute_plan(plan, frames, device=device)
-    plan = _decorrelate(plan)
-    return lower_plan(plan, frames, device=device)
+            with obs.span("sql.optimize"):
+                plan = _optimize(plan, store_tables=store_table_names(frames))
+            return run_analyze(plan, frames, device=device)
+        if optimize:
+            with obs.span("sql.optimize"):
+                plan = _optimize(plan, store_tables=store_table_names(frames))
+            out, route = _execute_plan(plan, frames, device=device)
+            sp.set(**route)
+            return out
+        with obs.span("sql.optimize"):
+            plan = _decorrelate(plan)
+        return lower_plan(plan, frames, device=device)
 
 
 def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
@@ -113,6 +132,14 @@ def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
     cache is supplied (it performs its own scans).  ``device`` places
     the other store scans (default ``CONFIG.device``).
     """
+    return _execute_plan(plan, frames, scan_cache=scan_cache, device=device)[0]
+
+
+def _execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
+    """``execute_plan``'s result and the route it took, as attributes of
+    ``sql.execute``: ``compiled_hit`` or ``compiled_miss`` with the
+    plan's ``digest``, ``fallback`` where the compiled path declined,
+    none where it was not tried (the span's ``op_by_op`` stands)."""
     from ..core.config import CONFIG
 
     # out_of_core=force must reach the chunk-streaming lowering: the
@@ -124,10 +151,15 @@ def execute_plan(plan, frames: Dict, *, scan_cache=None, device=None):
     ):
         from . import compile as _compile
 
-        out = _compile.maybe_execute_compiled(plan, frames)
-        if out is not None:
-            return out
-    return lower_plan(plan, frames, scan_cache=scan_cache, device=device)
+        got = _compile.run_compiled(plan, frames)
+        if got is not None:
+            out, cache_hit, digest = got
+            return out, {"route": "compiled_hit" if cache_hit else "compiled_miss",
+                         "digest": digest}
+        route = {"route": "fallback"}
+    else:
+        route = {}
+    return lower_plan(plan, frames, scan_cache=scan_cache, device=device), route
 
 
 def explain(query: str, scope: Dict) -> str:

@@ -61,7 +61,12 @@ serialize too, and a later graph never overwrites a result before it
 is copied out.
 
 Observability: ``STATS`` counts cache hits/misses/evictions/fallbacks
-and records per-plan trace / compile / execute timings.
+and records each plan's trace and compile seconds and its calls.  The
+``sql.compile.prepare`` span covers an execution's host work up to the
+cache lookup (scans, table prep, unique requests, parameters, the
+fingerprint), ``sql.compile.execute`` the replay and its copy-out;
+``run_compiled`` tells its caller whether the graph was cached, and the
+plan's digest.
 """
 from __future__ import annotations
 
@@ -87,6 +92,7 @@ from ..core.frame import (
     TensorFrame,
     _empty_tensor,
     _valid_name,
+    count_d2h,
     float_dtype,
     host,
 )
@@ -128,6 +134,7 @@ __all__ = [
     "Unsupported",
     "clear_cache",
     "maybe_execute_compiled",
+    "run_compiled",
     "reset_stats",
 ]
 
@@ -1814,10 +1821,12 @@ class _Entry:
         if self.graph is None:  # the CPU: the traced function, eagerly
             it, ft, n_out = self.run(self.pads)
             n = int(n_out)
+            count_d2h()
             return it[:n], ft[:n], n
         self.graph.replay()
         it, ft, n_out = self.outs
         n = int(n_out)  # host sync: the graph really ran
+        count_d2h()
         return it[:n].clone(), ft[:n].clone(), n
 
 
@@ -1920,6 +1929,7 @@ def _maybe_compile(fpr, pplan, preps, combos, tables, sigs, kinds, values):
         entry = _CACHE.get(fpr)
         if entry is not None:
             STATS["hits"] += 1
+            _count_call(entry)
             _CACHE.move_to_end(fpr)
             return entry
         if fpr in _NEGATIVE:
@@ -1964,13 +1974,20 @@ def _maybe_compile(fpr, pplan, preps, combos, tables, sigs, kinds, values):
                 "tables": tables,
                 "trace_s": 0.0,
                 "compile_s": 0.0,
-                "exec_s": 0.0,
                 "calls": 0,
             },
         )
         rec["trace_s"] += entry.trace_s
         rec["compile_s"] += entry.compile_s
+        rec["calls"] += 1
     return entry
+
+
+def _count_call(entry) -> None:
+    """One more execution of ``entry``'s plan (a cache hit).  Under _LOCK."""
+    rec = STATS["plans"].get(entry.digest)
+    if rec is not None:
+        rec["calls"] += 1
 
 
 _FALLBACK_ERRORS = (Unsupported, SqlError, TraceGuardError)
@@ -1978,69 +1995,81 @@ _FALLBACK_ERRORS = (Unsupported, SqlError, TraceGuardError)
 
 def maybe_execute_compiled(plan, frames) -> Optional[TensorFrame]:
     """Run ``plan`` through the compiled path, or return None to let
-    the caller dispatch op-by-op."""
+    the caller dispatch op-by-op (the JAX package's entry point;
+    ``sql.execute_plan`` calls ``run_compiled``)."""
+    got = run_compiled(plan, frames)
+    return None if got is None else got[0]
+
+
+def run_compiled(plan, frames) -> Optional[Tuple[TensorFrame, bool, str]]:
+    """``maybe_execute_compiled``, with whether the plan's graph was
+    cached and its digest beside the frame: ``(frame, cache_hit,
+    digest)``, or None where the compiled path declines."""
     mode = CONFIG.compiled
     if mode == "off":
         return None
-    scans: List[Scan] = list(walk_scans(plan))
-    if not scans:
-        return None
-    tables = sorted({s.table for s in scans})
-    for s in scans:
-        if s.predicates:
+    with obs.span("sql.compile.prepare") as sp:
+        scans: List[Scan] = list(walk_scans(plan))
+        if not scans:
+            return None
+        tables = sorted({s.table for s in scans})
+        sp.set(tables=tables)
+        for s in scans:
+            if s.predicates:
+                with _LOCK:
+                    STATS["fallbacks"] += 1
+                return None
+        for t in tables:
+            if not isinstance(frames.get(t), TensorFrame):
+                with _LOCK:
+                    STATS["fallbacks"] += 1
+                return None
+        udfs = active_udfs()
+        if udfs and plan_uses_udf(plan, frozenset(udfs)):
+            # the fingerprint keys on plan structure; it cannot capture the
+            # python closure behind a session UDF -> op-by-op dispatch
             with _LOCK:
                 STATS["fallbacks"] += 1
             return None
-    for t in tables:
-        if not isinstance(frames.get(t), TensorFrame):
+        if mode != "force":
+            total = sum(frames[t].nrows for t in tables)
+            if total < CONFIG.compiled_min_rows:
+                with _LOCK:
+                    STATS["skipped_small"] += 1
+                return None
+
+        preps = {t: _prep_table(frames[t]) for t in tables}
+        reqs: Dict[str, set] = {}
+        _collect_unique_requests(plan, reqs)
+        for t, combos in reqs.items():
+            if t in preps:
+                for combo in combos:
+                    _ensure_unique(preps[t], combo)
+
+        try:
+            pplan, values = parameterize(plan)
+        except Unsupported:
             with _LOCK:
                 STATS["fallbacks"] += 1
             return None
-    udfs = active_udfs()
-    if udfs and plan_uses_udf(plan, frozenset(udfs)):
-        # the fingerprint keys on plan structure; it cannot capture the
-        # python closure behind a session UDF -> op-by-op dispatch
+        kinds = [k for k, _ in values]
+        combos = {t: _plan_combos(preps[t], reqs.get(t, ())) for t in tables}
+        sigs = [_table_sig(t, preps[t], combos[t]) for t in tables]
+        fpr = "|".join([repr(pplan), f"fd={CONFIG.float_dtype}", *sigs])
         with _LOCK:
-            STATS["fallbacks"] += 1
-        return None
-    if mode != "force":
-        total = sum(frames[t].nrows for t in tables)
-        if total < CONFIG.compiled_min_rows:
-            with _LOCK:
-                STATS["skipped_small"] += 1
-            return None
-
-    preps = {t: _prep_table(frames[t]) for t in tables}
-    reqs: Dict[str, set] = {}
-    _collect_unique_requests(plan, reqs)
-    for t, combos in reqs.items():
-        if t in preps:
-            for combo in combos:
-                _ensure_unique(preps[t], combo)
-
-    try:
-        pplan, values = parameterize(plan)
-    except Unsupported:
-        with _LOCK:
-            STATS["fallbacks"] += 1
-        return None
-    kinds = [k for k, _ in values]
-    combos = {t: _plan_combos(preps[t], reqs.get(t, ())) for t in tables}
-    sigs = [_table_sig(t, preps[t], combos[t]) for t in tables]
-    fpr = "|".join([repr(pplan), f"fd={CONFIG.float_dtype}", *sigs])
-    with _LOCK:
-        if fpr in _NEGATIVE:
-            STATS["fallbacks"] += 1
-            return None
-        entry = _CACHE.get(fpr)
-        if entry is not None:
-            STATS["hits"] += 1
-            _CACHE.move_to_end(fpr)
-            tlock = None
-        else:
-            # one lock per in-flight fingerprint: concurrent first
-            # compiles of the same plan serialize, distinct plans don't
-            tlock = _TRACE_LOCKS.setdefault(fpr, threading.Lock())
+            if fpr in _NEGATIVE:
+                STATS["fallbacks"] += 1
+                return None
+            entry = _CACHE.get(fpr)
+            if entry is not None:
+                STATS["hits"] += 1
+                _count_call(entry)
+                _CACHE.move_to_end(fpr)
+                tlock = None
+            else:
+                # one lock per in-flight fingerprint: concurrent first
+                # compiles of the same plan serialize, distinct plans don't
+                tlock = _TRACE_LOCKS.setdefault(fpr, threading.Lock())
 
     cache_hit = entry is not None
     if entry is None:
@@ -2049,7 +2078,6 @@ def maybe_execute_compiled(plan, frames) -> Optional[TensorFrame]:
         if entry is None:
             return None
 
-    t0 = time.perf_counter()
     with obs.span(
         "sql.compile.execute", digest=entry.digest, cache_hit=cache_hit
     ) as sp:
@@ -2057,11 +2085,5 @@ def maybe_execute_compiled(plan, frames) -> Optional[TensorFrame]:
             entry.set_params(values)
             it, ft, n = entry.execute(preps)
         sp.set(rows=n)
-    t1 = time.perf_counter()
-    with _LOCK:
-        rec = STATS["plans"].get(entry.digest)
-        if rec is not None:
-            rec["exec_s"] += t1 - t0
-            rec["calls"] += 1
     cols = {k: dataclasses.replace(m) for k, m in entry.columns.items()}
-    return TensorFrame(it, ft, cols, {}, n)
+    return TensorFrame(it, ft, cols, {}, n), cache_hit, entry.digest

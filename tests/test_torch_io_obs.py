@@ -7,6 +7,9 @@ for the same calls on the same inputs (made from a seed with numpy).
 The CSV tests of tests/test_io.py, the tracer, metrics and export tests
 of tests/test_obs.py, and the errors, faults, retry, deadline and
 spill-only tests of tests/test_resilience.py run on the port as well.
+The spans and counters along one SQL query, and the tracer's bridge to
+``torch.profiler``, have no counterpart in the JAX package: they are
+checked on the port alone.
 """
 import importlib
 import json
@@ -15,6 +18,7 @@ import time
 
 import numpy as np
 import pytest
+from torch.profiler import ProfilerActivity, profile, record_function
 
 import jax
 
@@ -24,7 +28,7 @@ from repro.core import TensorFrame as JFrame
 from repro.core import io as j_io
 from repro.core import oracle as j_orc
 from repro.core.config import CONFIG as J_CONFIG
-from repro_torch import obs
+from repro_torch import obs, sql
 from repro_torch import resilience as res
 from repro_torch.core import TensorFrame
 from repro_torch.core import io as tio
@@ -45,6 +49,7 @@ from repro_torch.resilience import (
     faults,
     retry,
 )
+from repro_torch.sql import compile as plan_compile
 from repro_torch.store import spill as spill_mod
 from repro_torch.store.spill import SPILL
 
@@ -270,6 +275,23 @@ def test_disabled_tracing_is_noop():
     assert obs.spans() == []
 
 
+def test_obs_modules_import_no_torch():
+    """The tracer finds torch in ``sys.modules`` for its profiler records:
+    no module of ``repro_torch.obs`` imports it."""
+    import ast
+    from pathlib import Path
+
+    for path in Path(obs.__file__).parent.glob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            assert all(n.split(".")[0] != "torch" for n in names), (path.name, names)
+
+
 def test_span_nesting_and_attrs(tracing_on):
     with obs.span("outer", depth=0):
         with obs.span("inner") as sp:
@@ -330,43 +352,143 @@ def test_join_spans_cost_nothing_when_off():
 
 
 # ----------------------------------------------------------------------
+# spans and counters along one SQL query; the bridge to torch.profiler
+# ----------------------------------------------------------------------
+_Q = "SELECT s, SUM(v) AS t FROM t WHERE a > 3 GROUP BY s ORDER BY s"
+_FRONT = ["sql.parse", "sql.plan", "sql.optimize"]
+
+
+@pytest.fixture()
+def sql_scope():
+    rng = np.random.default_rng(5)
+    t = TensorFrame.from_arrays({"a": np.arange(64), "s": rng.choice(["x", "y", "z"], 64),
+                                 "v": rng.normal(size=64)}, device="cpu")
+    saved = CONFIG.compiled
+    plan_compile.clear_cache()
+    try:
+        yield {"t": t}
+    finally:
+        CONFIG.compiled = saved
+        plan_compile.clear_cache()
+
+
+def _events(prof):
+    return [(e.name(), e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()]
+
+
+@pytest.mark.parametrize("mode,routes", [
+    ("force", ["compiled_miss", "compiled_hit"]),
+    ("auto", ["fallback", "fallback"]),  # 64 rows: under compiled_min_rows
+    ("off", ["op_by_op", "op_by_op"]),
+])
+def test_sql_execute_is_the_root_of_its_query_spans(tracing_on, sql_scope, mode, routes):
+    CONFIG.compiled = mode
+    for route in routes:
+        obs.clear_trace()
+        out = sql.execute(_Q, sql_scope).to_dict()
+        recs = obs.spans()
+        by_id = {r.span_id: r for r in recs}
+        root, to_host = recs[0], recs[-1]
+        assert root.name == "sql.execute" and root.parent_id == 0
+        assert root.attrs["route"] == route
+        assert ("digest" in root.attrs) is route.startswith("compiled")
+
+        def top(r):
+            while r.parent_id:
+                r = by_id[r.parent_id]
+            return r
+
+        assert all(top(r) is root for r in recs[:-1])
+        children = [r.name for r in recs if r.parent_id == root.span_id]
+        if mode == "off":
+            want = _FRONT + ["sql.exec.Sort"]
+        elif mode == "auto":
+            want = _FRONT + ["sql.compile.prepare", "sql.exec.Sort"]
+        else:
+            want = _FRONT + ["sql.compile.prepare"] + (
+                ["sql.compile.trace"] if route == "compiled_miss" else []) + ["sql.compile.execute"]
+        assert children == want
+        if mode != "off":
+            prep = next(r for r in recs if r.name == "sql.compile.prepare")
+            assert prep.attrs == {"tables": ["t"]}
+        assert to_host.name == "frame.to_host" and to_host.parent_id == 0
+        assert to_host.attrs == {"rows": len(out["s"]), "columns": 2}
+
+
+def test_tracing_off_records_no_span_and_opens_no_profiler_record(sql_scope):
+    CONFIG.compiled = "force"
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        sql.execute(_Q, sql_scope).to_dict()
+    assert obs.spans() == []
+    assert not [n for n, _, _ in _events(prof) if n.startswith(("sql.", "frame."))]
+
+
+def test_spans_open_profiler_records_inside_their_caller(tracing_on, sql_scope):
+    CONFIG.compiled = "force"
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("caller"):
+            sql.execute(_Q, sql_scope).to_dict()
+    evs = _events(prof)
+    (outer,) = [(s, t) for n, s, t in evs if n == "caller"]
+    ours = {n: (s, t) for n, s, t in evs if n.startswith(("sql.", "frame."))}
+    assert set(ours) == {r.name for r in obs.spans()}
+    assert set(ours) >= {"sql.execute", *_FRONT, "sql.compile.prepare", "sql.compile.execute",
+                         "frame.to_host"}
+    for s, t in ours.values():
+        assert outer[0] <= s <= t <= outer[1]
+    for child in _FRONT + ["sql.compile.prepare", "sql.compile.execute"]:
+        assert ours["sql.execute"][0] <= ours[child][0] <= ours[child][1] <= ours["sql.execute"][1]
+
+
+def test_counters_count_loading_and_each_copy_to_the_host(sql_scope):
+    before = metrics.snapshot()
+    f = TensorFrame.from_arrays({"a": np.arange(10), "s": np.array(list("ab") * 5),
+                                 "v": np.arange(10.0)}, device="cpu")
+    loaded = metrics.snapshot()
+    d = metrics.diff(before, loaded)
+    assert d["core.load"]["factorize_s"] > 0
+    assert "obs" not in d
+    f.to_dict()
+    d = metrics.diff(loaded, metrics.snapshot())
+    assert d["obs"]["frame.d2h_copies"] == 3  # one a column
+    before = metrics.snapshot()
+    TensorFrame.from_arrays({"a": np.arange(10)}, device="cpu")
+    assert "core.load" not in metrics.diff(before, metrics.snapshot())  # no string column
+    CONFIG.compiled = "force"
+    out = sql.execute(_Q, sql_scope)
+    before = metrics.snapshot()
+    sql.execute(_Q, sql_scope)  # a replay: its one read, the row count
+    assert metrics.diff(before, metrics.snapshot())["obs"] == {"frame.d2h_copies": 1}
+    assert out.nrows == 3
+
+
+# ----------------------------------------------------------------------
 # metrics registry
 # ----------------------------------------------------------------------
 def test_counter_gauge_histogram_snapshot_diff_reset():
-    c, g, h = metrics.counter("t.count"), metrics.gauge("t.gauge"), metrics.histogram("t.hist")
-    jc, jg, jh = (j_obs.metrics.counter("t.count"), j_obs.metrics.gauge("t.gauge"),
-                  j_obs.metrics.histogram("t.hist"))
-    for cc, gg, hh in ((c, g, h), (jc, jg, jh)):
+    # the port keeps counters alone: nothing of it used gauges or histograms
+    c, jc = metrics.counter("t.count"), j_obs.metrics.counter("t.count")
+    for cc in (c, jc):
         cc.inc()
         cc.inc(2)
-        gg.set(42)
-        for v in (1.0, 2.0, 3.0, 4.0, 10.0):
-            hh.observe(v)
     snap = metrics.snapshot()
-
-    # this test's metrics: a registry also holds the ones earlier tests of
+    assert metrics.counter("t.count") is c
+    # this test's counter: a registry also holds the ones earlier tests of
     # the process registered (tests/test_obs.py's "race.count" in the
     # reference's)
-    def own(s):
-        return {name: s["obs"][name] for name in ("t.count", "t.gauge", "t.hist")}
-
-    assert own(snap) == own(j_obs.metrics.snapshot())
-    assert snap["obs"]["t.count"] == 3 and snap["obs"]["t.gauge"] == 42
-    assert snap["obs"]["t.hist"]["count"] == 5 and snap["obs"]["t.hist"]["max"] == 10.0
+    assert snap["obs"]["t.count"] == j_obs.metrics.snapshot()["obs"]["t.count"] == 3
     before = metrics.snapshot()
     c.inc(5)
     d = metrics.diff(before, metrics.snapshot())
-    assert d["obs"]["t.count"] == 5 and "t.gauge" not in d.get("obs", {})
+    assert d["obs"] == {"t.count": 5}
     assert d == j_obs.metrics.diff(before, metrics.snapshot())
     metrics.reset()
     assert metrics.snapshot()["obs"]["t.count"] == 0
-    with pytest.raises(TypeError):
-        metrics.gauge("t.count")
 
 
 def test_engine_groups_registered_and_share_state():
     assert set(metrics.load_engine_groups()) >= {
-        "core.join", "sql.compile", "store.pool", "store.spill", "resilience"}
+        "core.join", "core.load", "sql.compile", "store.pool", "store.spill", "resilience"}
     t_join.STATS["stats_unique_hits"] += 3
     assert metrics.snapshot()["core.join"]["stats_unique_hits"] == 3
     metrics.reset()
@@ -438,6 +560,17 @@ def test_chrome_trace_schema(tracing_on, tmp_path):
     assert metas and metas[0]["name"] == "thread_name"
     parent = next(e for e in xs if e["name"] == "parent")
     assert parent["args"]["rows"] == 3 and parent["args"]["obj"].startswith("<object")
+
+
+def test_chrome_trace_is_on_the_profilers_clock(tracing_on, tmp_path):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs.span("probe"):
+            time.sleep(0.002)
+    obs.export_chrome_trace(str(tmp_path / "trace.json"))
+    (ev,) = [e for e in json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+             if e["name"] == "probe"]
+    (rec,) = [(s, t) for n, s, t in _events(prof) if n == "probe"]
+    assert abs(ev["ts"] - rec[0] / 1e3) < 1000 and abs(ev["dur"] - (rec[1] - rec[0]) / 1e3) < 1000
 
 
 def test_export_json_operators_match_reference_aggregation(tracing_on):

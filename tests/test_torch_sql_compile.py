@@ -243,7 +243,7 @@ def test_stats_record_per_plan_timings(compiled_mode):
     (rec,) = compiled_mode["plans"].values()
     assert rec["calls"] == 2
     assert rec["trace_s"] > 0 and rec["compile_s"] >= 0
-    assert rec["exec_s"] > 0 and rec["tables"] == ["t"]
+    assert rec["tables"] == ["t"] and "exec_s" not in rec
     (jrec,) = j_compile.STATS["plans"].values()
     assert (rec["calls"], rec["tables"]) == (jrec["calls"], jrec["tables"])
 
